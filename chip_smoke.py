@@ -5,20 +5,28 @@
 Phases (any failure ends the run with a nonzero exit):
 1. the card's name and power limit;
 2. build the CUDA kernels from ivlnce_tpu_torch/csrc;
-3. each kernel against its plain PyTorch version on the card, on a
-   seeded 12-step walk at main-path shapes (B=16, 256x256 frames,
-   1024^2 grid, 192^2 window, 64x64 map): exact equality at every step;
+3. each kernel against its plain PyTorch version on the card: K1 and K2
+   on a seeded 12-step walk at main-path shapes (B=16, 256x256 frames,
+   1024^2 grid, 192^2 window, 64x64 map), K3 on two loads of seeded
+   clouds (B=16, 2^18 points, 1024^2 grid, the second into some lanes
+   only): exact equality everywhere;
 4. kernel, plain-version and bound times at B=64 (CUDA events);
-5. one full-width mapper + MapCMA step on the card against the same step
-   on the CPU (plain versions): maps equal, logits and RNN states close;
+5. full-width steps on the card against the same steps on the CPU (plain
+   versions): a mapper + MapCMA step (maps equal, logits and RNN states
+   close), a known-map preload and three steps (maps equal), and a RedNet
+   step at 256^2 (logits close; maps equal with the labels fed equal);
 6. the port's iterative MapCMA evaluation through its entry point
    (``ivlnce_tpu_torch.run.run_exp``) at full width
    (configs/fake/map_cma_eval_iterative.yaml, seeded random weights),
-   with the kernels' launch counters read around it;
+   with the kernels' launch counters set to 0 before and read after;
 7. the same evaluation again with a window of policy steps traced by
    ``torch.profiler``: the device time of each named range of the step
-   (mapper, encoders, GRU + attention, instruction encoder) and the
-   card's busy share.
+   (mapper, semantics, encoders, GRU + attention, instruction encoder)
+   and the card's busy share;
+8. the known-map evaluation (configs/fake/map_cma_eval_known.yaml, K3 and
+   K2) through ``run_exp`` at full width;
+9. the predicted-semantics evaluation (PredictedSemanticsIterativeMapper:
+   RedNet, K1 and K2) through ``run_exp``, then traced as in phase 7.
 
 Prints the kernels as one JSON line and, last, the device as JSON.
 Imports nothing of JAX.
@@ -41,6 +49,10 @@ import numpy as np
 import torch
 
 CONFIG = "configs/fake/map_cma_eval_iterative.yaml"
+KNOWN_CONFIG = "configs/fake/map_cma_eval_known.yaml"
+PREDICTED_OPTS = ["RL.POLICY.OBS_TRANSFORMS.ENABLED_TRANSFORMS",
+                  "['PredictedSemanticsIterativeMapper']"]
+KNOWN_POINTS = 2 ** 18  # TPU.known_map_max_points
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS = 67e12  # H100 SXM, outside the tensor cores
 # weights seed: seed 3's random policy walks forward from the first
@@ -309,6 +321,205 @@ def phase_timing(card: str) -> dict:
     return result
 
 
+# -- K3: the known-map load --------------------------------------------------
+def known_clouds(batch: int, n: int, seed: int):
+    """Seeded clouds shaped like scanned walls: each (x, z) at four
+    heights. A quarter of the (x, z) fall in a 4 m square, so cells hold
+    runs of equal heights; the rest spread over 54 m, so about a tenth lie
+    past a 1024^2 grid centred on the origin and are dropped."""
+    rng = np.random.default_rng(seed)
+    q = n // 4
+    xz = rng.uniform(-27.0, 27.0, (batch, q, 2)).astype(np.float32)
+    xz[:, : q // 4] = rng.uniform(-2.0, 2.0, (batch, q // 4, 2))
+    xyz = np.empty((batch, n, 3), np.float32)
+    for k, y in enumerate((0.2, 0.5, 0.8, 1.1)):
+        xyz[:, k * q:(k + 1) * q, 0] = xz[..., 0]
+        xyz[:, k * q:(k + 1) * q, 1] = y
+        xyz[:, k * q:(k + 1) * q, 2] = xz[..., 1]
+    sem = rng.integers(0, 13, (batch, n)).astype(np.uint8)
+    return xyz, sem
+
+
+def load_known(params, state, lanes, xyz, sem, counts, centers, plain):
+    """``mapping.mapper.load_lanes`` with the kernel, or the same host
+    steps with K3's plain version."""
+    from ivlnce_tpu_torch.mapping import mapper as M
+    from ivlnce_tpu_torch.ops import scatter as S
+
+    if not plain:
+        return M.load_lanes(params, state, lanes, xyz, sem, counts, centers)
+    rows, origin = M.prepare_load(params, state, lanes, centers)
+    S.known_load_plain(state.word, state.aux, state.dropped, rows, origin,
+                       xyz, sem, counts, params.half_res)
+    return state
+
+
+def phase_known_vs_plain() -> float:
+    """K3 against its plain version over two loads at B=16, 2^18 points
+    per cloud, G=1024: all lanes, then a seeded subset; counts vary per
+    lane. The largest absolute difference over word, aux and dropped."""
+    from ivlnce_tpu_torch.mapping import mapper as M
+    from ivlnce_tpu_torch.ops import scatter as S
+
+    params = mapper_params()
+    dev = torch.device("cuda")
+    b, n = 16, KNOWN_POINTS
+    rng = np.random.default_rng(4)
+    states = {p: M.init_state(b, params.grid_cells, dev)
+              for p in (False, True)}
+    worst = 0.0
+    for t, mask in enumerate((np.ones(b, bool), rng.random(b) < 0.5)):
+        lanes = np.nonzero(mask)[0]
+        xyz, sem = known_clouds(len(lanes), n, seed=10 + t)
+        counts = rng.integers(n // 2, n + 1, len(lanes)).astype(np.int32)
+        centers = rng.uniform(-1.0, 1.0, (len(lanes), 2)).astype(np.float32)
+        args = (torch.from_numpy(xyz).to(dev), torch.from_numpy(sem).to(dev),
+                torch.from_numpy(counts).to(dev), centers)
+        for plain, st in states.items():
+            load_known(params, st, lanes, *args, plain=plain)
+        torch.cuda.synchronize()
+        kern, ref = states[False], states[True]
+        err = _max_abs([(kern.word, ref.word), (kern.aux, ref.aux),
+                        (kern.dropped, ref.dropped)])
+        worst = max(worst, err)
+        print(f"  load {t} into {len(lanes)} lanes: known_load max abs diff "
+              f"{err}, stored cells {int((kern.word != S.EMPTY_WORD).sum())}, "
+              f"dropped so far {int(kern.dropped.sum())}")
+        if err:
+            raise SystemExit(f"known_load disagrees with its plain version "
+                             f"at load {t}")
+    if int(states[False].dropped.sum()) == 0:
+        raise SystemExit("the clouds dropped no points: drop counting "
+                         "untested")
+    return worst
+
+
+def _known_words(xyz, counts, origin, g, half):
+    """Flat grid cells and packed words of the points K3 may store: the
+    cells its atomic pass touches."""
+    from ivlnce_tpu_torch.ops import geometry as G
+    from ivlnce_tpu_torch.ops import scatter as S
+
+    l, n, _ = xyz.shape
+    inv = G.f32_reciprocal(half)
+    r = torch.round(xyz[:, :, 2] * inv).long() - origin[:, 0:1].long()
+    c = torch.round(xyz[:, :, 0] * inv).long() - origin[:, 1:2].long()
+    j = torch.arange(n, device=xyz.device)
+    keep = ((j[None] < counts[:, None]) & (r >= 0) & (r < g) & (c >= 0)
+            & (c < g))
+    lane = torch.arange(l, device=xyz.device)[:, None]
+    cell = ((lane * g + r) * g + c)[keep]
+    word = ((S.sortable_from_float(xyz[:, :, 1]).long() << 32)
+            | (0xFFFFFFFE - j)[None])[keep]
+    return cell, word
+
+
+def pass_ms(fn, names, reps: int) -> dict:
+    """Median device ms per call of each kernel whose name holds one of
+    ``names``, over ``reps`` calls of ``fn`` traced by ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    durs = defaultdict(list)
+    for ev in events:
+        if ev.get("cat") == "kernel":
+            for n in names:
+                if n in ev.get("name", ""):
+                    durs[n].append(ev["dur"] / 1e3)
+    if any(len(durs[n]) != reps for n in names):
+        raise SystemExit(f"traced {dict((n, len(durs[n])) for n in names)} "
+                         f"launches, expected {reps} of each")
+    return {n: float(np.median(durs[n])) for n in names}
+
+
+def phase_known_timing(card: str) -> dict:
+    """K3 at B=64, 2^18 points per cloud, G=1024 over six loads of all
+    lanes (median after the first): the kernel, its plain version, the
+    clear of the loaded lanes' grids (reported apart: ``load_lanes`` runs
+    it before K3), each of K3's two passes apart (``torch.profiler``), a
+    byte bound over 3.35 TB/s and a partial yardstick: one
+    ``scatter_reduce_`` amax of the points' packed words into a cleared
+    grid, without payload. The bound charges what the load must move:
+    12 bytes read per valid point (its xyz), 8 read per touched cell (its
+    word), and per changed cell the winner's label byte read and 12 bytes
+    of word and payload written; the lanes' rows, counts and origins read
+    and their drop counts written."""
+    from ivlnce_tpu_torch.mapping import mapper as M
+    from ivlnce_tpu_torch.ops import scatter as S
+
+    params = mapper_params()
+    dev = torch.device("cuda")
+    b, n, g = 64, KNOWN_POINTS, params.grid_cells
+    lanes = np.arange(b)
+    xyz, sem = known_clouds(b, n, seed=20)
+    xyz_d = torch.from_numpy(xyz).to(dev)
+    sem_d = torch.from_numpy(sem).to(dev)
+    counts = torch.full((b,), n, dtype=torch.int32, device=dev)
+    rows = torch.from_numpy(lanes.astype(np.int32)).to(dev)
+    origin = M._grid_origins(np.zeros(b, np.float32), np.zeros(b, np.float32),
+                             params)
+    origin_d = torch.from_numpy(origin).to(dev)
+    cell, word = _known_words(xyz_d, counts, origin_d, g, params.half_res)
+    touched = int(torch.unique(cell).numel())
+    times = {"ms": [], "plain_ms": [], "clear_ms": [], "yardstick_ms": []}
+    states = {"ms": M.init_state(b, g, dev), "plain_ms": M.init_state(b, g, dev)}
+    op = {"ms": S.known_load, "plain_ms": S.known_load_plain}
+    for _ in range(6):
+        for key, st in states.items():
+            clear = cuda_ms(lambda: M.clear_lanes(st, np.zeros(b, bool)))
+            if key == "ms":
+                times["clear_ms"].append(clear)
+            times[key].append(cuda_ms(lambda: op[key](
+                st.word, st.aux, st.dropped, rows, origin_d, xyz_d, sem_d,
+                counts, params.half_res)))
+        flat = torch.full((b * g * g,), S.EMPTY_WORD, dtype=torch.int64,
+                          device=dev)
+        times["yardstick_ms"].append(cuda_ms(
+            lambda: flat.scatter_reduce_(0, cell, word, "amax")))
+        del flat
+    torch.cuda.synchronize()
+    kern = states["ms"]
+    changed = int((kern.word != S.EMPTY_WORD).sum())
+    if not (torch.equal(kern.word, states["plain_ms"].word)
+            and torch.equal(kern.aux, states["plain_ms"].aux)):
+        raise SystemExit("known_load disagrees with its plain version at "
+                         "B=64")
+    st = states["ms"]
+
+    def clear_and_load():
+        M.clear_lanes(st, np.zeros(b, bool))
+        S.known_load(st.word, st.aux, st.dropped, rows, origin_d, xyz_d,
+                     sem_d, counts, params.half_res)
+
+    passes = pass_ms(clear_and_load, ("known_load_max", "known_load_commit"),
+                     reps=5)
+    valid = b * n
+    nbytes = (valid * 12 + touched * 8 + changed * (1 + 12)
+              + b * 4 * 5)
+    result = {k: float(np.median(v[1:])) for k, v in times.items()}
+    result.update({
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "points": valid, "touched_cells": touched, "changed_cells": changed,
+        "bytes": nbytes, "pass_ms": passes,
+    })
+    print(f"  known_load at B=64, {valid} points [{card}]: kernel "
+          f"{result['ms']:.4f} ms, plain {result['plain_ms']:.4f} ms, "
+          f"clear of 64 grids {result['clear_ms']:.4f} ms, bound "
+          f"{result['bound_ms']:.4f} ms ({nbytes} bytes: {touched} touched, "
+          f"{changed} changed cells), yardstick scatter_reduce_ amax "
+          f"(partial) {result['yardstick_ms']:.4f} ms")
+    print(f"  known_load passes, profiler median of 5 [{card}]: {passes}")
+    return result
+
+
 def seeded_policy(config):
     """The MapCMA policy at the config's widths, weights from ``SEED``."""
     from ivlnce_tpu_torch.models.policy import MapCMAPolicy
@@ -375,7 +586,151 @@ def phase_reference(card: str) -> dict:
     return worst
 
 
-def eval_opts(tmp: str, run: str, ckpt: str) -> list:
+def phase_known_reference(card: str) -> int:
+    """The fake val_seen scenes' known maps preloaded into three lanes,
+    then three mapper steps without accumulation, on the card (K3, K2)
+    and on the CPU (plain versions): grids and maps must be equal."""
+    from ivlnce_tpu_torch.mapping import mapper as M
+
+    params = mapper_params()
+    clouds = []
+    for i in range(3):
+        with np.load(f"data/known_maps/gt_semantics/fakeval_seen{i}.npz") as f:
+            clouds.append((f["xyz"].astype(np.float32),
+                           f["semantics"].astype(np.uint8)))
+    n = max(len(c[0]) for c in clouds)
+    xyz = np.zeros((3, n, 3), np.float32)
+    sem = np.zeros((3, n), np.uint8)
+    for i, (x, s) in enumerate(clouds):
+        xyz[i, :len(x)], sem[i, :len(s)] = x, s
+    counts = np.array([len(c[0]) for c in clouds], np.int32)
+    sides = {}
+    for dev in ("cpu", "cuda"):
+        state = M.init_state(3, params.grid_cells, dev)
+        outs = []
+        for t, (depth, _, pose, orient, _) in enumerate(walk(3, 256, 3, 5)):
+            if t == 0:
+                M.load_lanes(params, state, np.arange(3),
+                             torch.from_numpy(xyz).to(dev),
+                             torch.from_numpy(sem).to(dev),
+                             torch.from_numpy(counts).to(dev),
+                             pose[:, [0, 2]])
+            _, occ, smap = M.mapper_step(
+                params, state, torch.from_numpy(depth).to(dev), None, pose,
+                orient, None, np.ones(3, np.float32), update_world=False)
+            outs += [occ.cpu(), smap.cpu()]
+        sides[dev] = outs + [state.word.cpu(), state.aux.cpu(),
+                             state.dropped.cpu()]
+    err = _max_abs(zip(sides["cpu"], sides["cuda"]))
+    occupied = int(sides["cuda"][4].sum())  # the last step's occupancy
+    print(f"  known-map preload + 3 steps, card vs CPU [{card}]: max abs "
+          f"diff {err}, occupied map cells at the last step {occupied}")
+    if err or occupied == 0:
+        raise SystemExit("the card's known-map steps disagree with the CPU's")
+    return occupied
+
+
+# RedNet logits, card against CPU: largest absolute difference over the
+# largest |logit|. Float32 on both sides differs by sums in other orders
+# (about 5e-7); TF32 convolutions round every operand to 10 mantissa bits
+# and must fail the check, which the phase shows by running them too.
+REDNET_RTOL = 2e-5
+
+
+def rednet_flops(hw: int) -> int:
+    """Float32 operations of RedNet's convolutions and transposed
+    convolutions on one hw x hw image (two per multiply-add), counted
+    from the layers' shapes on the CPU."""
+    from ivlnce_tpu_torch.models import rednet as TR
+
+    model = TR.RedNet().eval()
+    macs = 0
+
+    def count(mod, inp, out):
+        nonlocal macs
+        k = mod.kernel_size[0] * mod.kernel_size[1]
+        if isinstance(mod, torch.nn.ConvTranspose2d):
+            macs += inp[0].numel() * mod.out_channels * k
+        else:
+            macs += out.numel() * mod.in_channels // mod.groups * k
+
+    for mod in model.modules():
+        if isinstance(mod, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+            mod.register_forward_hook(count)
+    with torch.no_grad():
+        model(torch.zeros(1, hw, hw, 3), torch.zeros(1, hw, hw, 1))
+    return 2 * macs
+
+
+def phase_rednet_reference(card: str) -> dict:
+    """A RedNet step at 256^2 (B=2, weights from SEED) on the card and on
+    the CPU. The card's float32 logits must lie within REDNET_RTOL of the
+    largest |logit| of the CPU's, and its labels must equal the CPU's
+    wherever the CPU's top-2 margin exceeds twice that tolerance (no
+    smaller margin can flip within it); the same step with TF32
+    convolutions must fall outside the tolerance. Then one mapper step on
+    each side fed the CPU's labels: maps equal."""
+    from ivlnce_tpu_torch.mapping import mapper as M
+    from ivlnce_tpu_torch.models import rednet as TR
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        cpu_model = TR.RedNet().eval()
+    gpu_model = TR.RedNet().cuda().eval()
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    params = mapper_params()
+    depth, _, pose, orient, masks = next(walk(2, 256, 1, 6))
+    rng = np.random.default_rng(6)
+    rgb = rng.integers(0, 256, (2, 256, 256, 3)).astype(np.uint8)
+
+    def logits(dev, model):
+        with torch.no_grad():
+            return model(*TR.normalize_inputs(
+                torch.from_numpy(rgb).to(dev),
+                torch.from_numpy(depth).to(dev))).cpu()
+
+    ref = logits("cpu", cpu_model)
+    got = logits("cuda", gpu_model)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = logits("cuda", gpu_model)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    scale = float(ref.abs().max())
+    tol = REDNET_RTOL * scale
+    err = _max_abs([(ref, got)])
+    tf32_err = _max_abs([(ref, tf32)])
+    top = ref.topk(2, -1).values
+    sure = (top[..., 0] - top[..., 1]) > 2 * tol
+    labels = {"cpu": torch.argmax(ref, -1).to(torch.uint8),
+              "cuda": torch.argmax(got, -1).to(torch.uint8)}
+    flipped = int((sure & (labels["cpu"] != labels["cuda"])).sum())
+    agree = float((labels["cpu"] == labels["cuda"]).float().mean())
+    maps = {}
+    for dev in ("cpu", "cuda"):
+        state = M.init_state(2, params.grid_cells, dev)
+        _, occ, smap = M.mapper_step(
+            params, state, torch.from_numpy(depth).to(dev),
+            labels["cpu"].to(dev), pose, orient, None, masks)
+        maps[dev] = (occ.cpu(), smap.cpu())
+    map_err = _max_abs(zip(maps["cpu"], maps["cuda"]))
+    print(f"  RedNet 256^2 card vs CPU [{card}]: largest |logit| {scale}; "
+          f"logits max abs diff float32 {err}, TF32 {tf32_err} (tolerance "
+          f"{tol}, {REDNET_RTOL} of the largest); labels agree on "
+          f"{agree:.6f} of pixels, {flipped} differ of {int(sure.sum())} "
+          f"whose margin exceeds twice the tolerance; maps max abs diff "
+          f"{map_err} with the labels fed equal")
+    if err > tol or flipped or map_err:
+        raise SystemExit("the card's RedNet step disagrees with the CPU's")
+    if tf32_err <= tol:
+        raise SystemExit("TF32 convolutions pass the RedNet tolerance: it "
+                         "cannot tell float32 from TF32")
+    return {"largest_logit": scale, "tolerance": tol, "logits": err,
+            "tf32_logits": tf32_err, "label_agreement": agree,
+            "labels_checked": int(sure.sum()), "maps": map_err}
+
+
+def eval_opts(tmp: str, run: str, ckpt: str, extra=()) -> list:
     """run_exp options: 3 lanes (one per val_seen scene), so each lane
     walks two 4-episode tours with tour-persistent maps, episodes cut to
     30 agent steps; outputs under ``tmp/run``."""
@@ -389,24 +744,38 @@ def eval_opts(tmp: str, run: str, ckpt: str) -> list:
         "RESULTS_DIR", os.path.join(out, "results"),
         "LOG_FILE", os.path.join(out, "eval.log"),
         "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", "30",
+        *extra,
     ]
 
 
-def phase_end_to_end(card: str, tmp: str, ckpt: str) -> dict:
-    """``run_exp`` eval on the card."""
+# the evaluations chip_smoke drives: config, extra options, and the
+# kernels each must launch (K1 must not run where no frame accumulates)
+PATHS = {
+    "iterative": (CONFIG, (), ("accumulate", "rasterize"), ("known_load",)),
+    "known": (KNOWN_CONFIG, (), ("known_load", "rasterize"), ("accumulate",)),
+    "predicted": (CONFIG, tuple(PREDICTED_OPTS), ("accumulate", "rasterize"),
+                  ("known_load",)),
+}
+
+
+def phase_end_to_end(card: str, tmp: str, ckpt: str, path: str) -> dict:
+    """``run_exp`` eval of one path on the card, the launch counters set
+    to 0 just before and read just after."""
     from ivlnce_tpu_torch.ops import scatter as S
     from ivlnce_tpu_torch.run import run_exp
 
-    results = os.path.join(tmp, "e2e", "results")
+    config, extra, needed, absent = PATHS[path]
+    results = os.path.join(tmp, path, "results")
+    opts = eval_opts(tmp, path, ckpt, extra)
     torch.cuda.reset_peak_memory_stats()
     S.launches.reset()
     t0 = time.perf_counter()
-    trainer = run_exp(CONFIG, "eval", eval_opts(tmp, "e2e", ckpt),
-                      device="cuda")
+    trainer = run_exp(config, "eval", opts, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"accumulate": S.launches.accumulate,
-                "rasterize": S.launches.rasterize}
+                "rasterize": S.launches.rasterize,
+                "known_load": S.launches.known_load}
 
     with open(os.path.join(results,
                            "iterative_stats_ckpt_0_val_seen.json")) as f:
@@ -425,9 +794,12 @@ def phase_end_to_end(card: str, tmp: str, ckpt: str) -> dict:
     if tours_crossed < 3:
         raise SystemExit(f"only {tours_crossed} tours crossed an episode "
                          "boundary")
-    steps = launches["accumulate"]
+    mapper = trainer.obs_transforms[0]
+    steps = launches["rasterize"]  # one per policy step
     summary = {
         "card": card,
+        "path": path,
+        "transform": type(mapper).__name__,
         "lanes": 3,
         "episodes": sum(len(v) for v in per_tour.values()),
         "policy_steps": steps,
@@ -438,29 +810,50 @@ def phase_end_to_end(card: str, tmp: str, ckpt: str) -> dict:
         "wall_ms_per_step": trainer.eval_seconds * 1e3 / max(steps, 1),
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "launches": launches,
+        "scene_loads": mapper.known_map_loads,
+        "occupied_cells": int((mapper.state.word != S.EMPTY_WORD).sum()),
+        "dropped_points": mapper.dropped_point_count(),
         "stats": stats,
     }
-    print(f"  [{card}] {summary['episodes']} episodes, "
+    print(f"  [{card}] {path}: {summary['episodes']} episodes, "
           f"{trainer.env_steps} env steps in {trainer.eval_seconds:.2f} s: "
-          f"{summary['env_steps_per_s']:.2f} env steps/s")
-    print(f"  [{card}] wall ms per policy step: "
+          f"{summary['env_steps_per_s']:.2f} env steps/s, {steps} policy "
+          f"steps, wall ms per policy step "
           f"{summary['wall_ms_per_step']:.4f}")
-    print(f"  launches on the main path: {launches}")
-    for k, n in launches.items():
-        if n == 0:
-            raise SystemExit(f"{k} kernel never launched on the main path")
+    print(f"  launches: {launches}; scene loads {summary['scene_loads']}; "
+          f"occupied grid cells after the run {summary['occupied_cells']}; "
+          f"dropped points {summary['dropped_points']}")
+    for k in needed:
+        if launches[k] == 0:
+            raise SystemExit(f"{k} kernel never launched on the {path} path")
+    for k in absent:
+        if launches[k] != 0:
+            raise SystemExit(f"{k} kernel launched on the {path} path")
+    if summary["occupied_cells"] == 0:
+        raise SystemExit(f"the {path} path stored no point")
     return summary
 
 
-RANGES = ("mapper", "encoders", "gru_attention", "instruction_encoder")
+RANGES = ("mapper", "semantics", "known_map_load", "encoders",
+          "gru_attention", "instruction_encoder")
 TRACE_SKIP, TRACE_STEPS = 50, 100
+
+
+def _innermost(ranges, starts, ts):
+    """Name of the innermost range holding host time ``ts`` (ranges nest,
+    as ``semantics`` inside ``mapper``), or None."""
+    i = bisect.bisect_right(starts, ts) - 1
+    for j in range(i, max(i - 4, -1), -1):  # nesting is at most 2 deep
+        if ts < ranges[j][1]:
+            return ranges[j][2]
+    return None
 
 
 def attribute_device_time(trace: dict) -> dict:
     """Device microseconds of a Chrome trace by the named range its launch
     fell in. A kernel or copy is matched to its launching runtime call by
-    the CUPTI correlation id; the call's host time places it in a
-    ``record_function`` range of ``RANGES``, or outside them."""
+    the CUPTI correlation id; the call's host time places it in the
+    innermost ``record_function`` range of ``RANGES``, or outside them."""
     launch_ts, ranges, device, steps = {}, [], [], []
     for ev in trace["traceEvents"]:
         cat, name = ev.get("cat"), ev.get("name", "")
@@ -483,9 +876,7 @@ def attribute_device_time(trace: dict) -> dict:
             unmatched += 1
             where = "no launch record"
         else:
-            i = bisect.bisect_right(starts, ts) - 1
-            inside = i >= 0 and ts < ranges[i][1]
-            where = ranges[i][2] if inside else "outside the ranges"
+            where = _innermost(ranges, starts, ts) or "outside the ranges"
         by_range[where] += ev["dur"]
         by_kernel[ev["name"]][where] += ev["dur"]
     return {
@@ -498,10 +889,10 @@ def attribute_device_time(trace: dict) -> dict:
     }
 
 
-def phase_trace(card: str, tmp: str, ckpt: str, wall_ms_per_step: float
-                ) -> dict:
-    """The same eval again, with ``torch.profiler`` recording policy steps
-    TRACE_SKIP + 5 to TRACE_SKIP + 5 + TRACE_STEPS. Device time per
+def phase_trace(card: str, tmp: str, ckpt: str, wall_ms_per_step: float,
+                path: str) -> dict:
+    """The path's eval again, with ``torch.profiler`` recording policy
+    steps TRACE_SKIP + 5 to TRACE_SKIP + 5 + TRACE_STEPS. Device time per
     ``record_function`` range of the trainer and policy, per policy step;
     the busy share sets device time per policy step against the untraced
     run's wall time per policy step (the profiler slows the host, not the
@@ -511,12 +902,13 @@ def phase_trace(card: str, tmp: str, ckpt: str, wall_ms_per_step: float
     from ivlnce_tpu_torch.run import run_exp
     from ivlnce_tpu_torch.trainers.base_trainer import BaseVLNCETrainer
 
-    path = os.path.join(tmp, "trace.json")
+    config, extra, _, _ = PATHS[path]
+    trace_path = os.path.join(tmp, f"trace_{path}.json")
     prof = profile(
         activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
         schedule=schedule(wait=TRACE_SKIP, warmup=5, active=TRACE_STEPS,
                           repeat=1),
-        on_trace_ready=lambda p: p.export_chrome_trace(path),
+        on_trace_ready=lambda p: p.export_chrome_trace(trace_path),
     )
     policy_step = BaseVLNCETrainer._policy_step
 
@@ -528,12 +920,12 @@ def phase_trace(card: str, tmp: str, ckpt: str, wall_ms_per_step: float
     BaseVLNCETrainer._policy_step = stepped
     try:
         with prof:
-            run_exp(CONFIG, "eval", eval_opts(tmp, "trace", ckpt),
-                    device="cuda")
+            run_exp(config, "eval", eval_opts(tmp, f"{path}_trace", ckpt,
+                                              extra), device="cuda")
     finally:
         BaseVLNCETrainer._policy_step = policy_step
     t0 = time.perf_counter()
-    with open(path) as f:
+    with open(trace_path) as f:
         got = attribute_device_time(json.load(f))
     print(f"  trace read in {time.perf_counter() - t0:.2f} s")
     if got["device_us"] == 0.0:
@@ -553,21 +945,32 @@ def phase_trace(card: str, tmp: str, ckpt: str, wall_ms_per_step: float
     per_step = {k: us / 1e3 / TRACE_STEPS
                 for k, us in got["by_range_us"].items()}
     device_ms = got["device_us"] / 1e3 / TRACE_STEPS
-    top = sorted(got["by_kernel_us"].items(),
-                 key=lambda kv: -sum(kv[1].values()))[:8]
+    # kernels by the first 60 characters of their names, summed, overall
+    # and within each range
+    top = defaultdict(float)
+    range_top = defaultdict(lambda: defaultdict(float))
+    for k, v in got["by_kernel_us"].items():
+        for where, us in v.items():
+            top[k[:60]] += us / 1e3 / TRACE_STEPS
+            range_top[where][k[:60]] += us / 1e3 / TRACE_STEPS
+
+    def largest(d, n):
+        return dict(sorted(d.items(), key=lambda kv: -kv[1])[:n])
     summary = {
         "card": card,
+        "path": path,
         "policy_steps": TRACE_STEPS,
         "device_ms_per_step": device_ms,
         "range_device_ms_per_step": per_step,
         "busy_share": device_ms / wall_ms_per_step,
         "traced_busy_share": got["device_us"] / got["window_us"],
         "mapper_kernels_ms_per_step": mapper_kernels,
-        "top_device_ms_per_step": {
-            k[:60]: sum(v.values()) / 1e3 / TRACE_STEPS for k, v in top},
+        "top_device_ms_per_step": largest(top, 10),
+        "range_top_device_ms_per_step": {
+            where: largest(d, 5) for where, d in range_top.items()},
     }
-    print(f"  [{card}] {TRACE_STEPS} policy steps traced; device ms per "
-          f"policy step {device_ms:.4f}, by range {per_step}")
+    print(f"  [{card}] {path}: {TRACE_STEPS} policy steps traced; device ms "
+          f"per policy step {device_ms:.4f}, by range {per_step}")
     print(f"  [{card}] busy share {summary['busy_share']:.4f} of the "
           f"untraced wall ({summary['traced_busy_share']:.4f} of the "
           f"traced window's)")
@@ -582,6 +985,7 @@ def main() -> int:
     from ivlnce_tpu_torch.ops import kernels
     from ivlnce_tpu_torch.utils.device import resolve_device
 
+    t_start = time.perf_counter()
     resolve_device("cuda")  # TF32 off
     card = card_line()
     print(card)
@@ -593,30 +997,62 @@ def main() -> int:
     print(f"  built in {time.perf_counter() - t0:.2f} s")
     print("  " + kernels.build_log.strip().replace("\n", "\n  "))
 
-    print("phase 3: kernels vs plain versions (B=16, 256^2, G=1024)")
+    print("phase 3: kernels vs plain versions (B=16, 256^2, G=1024; "
+          "K3 2^18 points per cloud)")
     worst = phase_kernels_vs_plain()
+    worst["known_load"] = phase_known_vs_plain()
 
     print("phase 4: timing (B=64)")
     timing = phase_timing(card)
+    timing["known_load"] = phase_known_timing(card)
 
-    print("phase 5: full-width step, card vs CPU")
-    phase_reference(card)
+    print("phase 5: full-width steps, card vs CPU")
+    reference = {"policy": phase_reference(card),
+                 "known_occupied": phase_known_reference(card),
+                 "rednet": phase_rednet_reference(card)}
 
-    print("phase 6: end-to-end iterative eval through run_exp")
     from ivlnce_tpu_torch.config import get_config
     from ivlnce_tpu_torch.trainers.base_trainer import save_checkpoint
 
+    e2e, traces = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "ckpt.0.pth")
         save_checkpoint(seeded_policy(get_config(CONFIG)),
                         get_config(CONFIG), ckpt)
-        e2e = phase_end_to_end(card, tmp, ckpt)
+        print("phase 6: end-to-end iterative eval through run_exp")
+        e2e["iterative"] = phase_end_to_end(card, tmp, ckpt, "iterative")
         print("phase 7: traced eval, device time by range")
-        trace = phase_trace(card, tmp, ckpt, e2e["wall_ms_per_step"])
+        traces["iterative"] = phase_trace(
+            card, tmp, ckpt, e2e["iterative"]["wall_ms_per_step"],
+            "iterative")
+        print("phase 8: known-map eval through run_exp")
+        e2e["known"] = phase_end_to_end(card, tmp, ckpt, "known")
+        print("phase 9: predicted-semantics eval through run_exp, then "
+              "traced")
+        e2e["predicted"] = phase_end_to_end(card, tmp, ckpt, "predicted")
+        traces["predicted"] = phase_trace(
+            card, tmp, ckpt, e2e["predicted"]["wall_ms_per_step"],
+            "predicted")
+        semantics_ms = traces["predicted"]["range_device_ms_per_step"].get(
+            "semantics")
+        if not semantics_ms:
+            raise SystemExit("no device time in the semantics range")
+        flops = rednet_flops(256)
+        traces["predicted"]["rednet_flops_per_image"] = flops
+        traces["predicted"]["semantics_bound_ms"] = (
+            3 * flops / FP32_FLOPS * 1e3)
+        print(f"  RedNet: {flops} float32 operations per 256^2 image, 3 "
+              f"per policy step: bound "
+              f"{traces['predicted']['semantics_bound_ms']:.4f} ms at 67 "
+              f"TFLOP/s against {semantics_ms:.4f} ms in the semantics range")
 
+    # each kernel's launches come from the path that runs it
+    kernel_path = {"accumulate": "iterative", "rasterize": "iterative",
+                   "known_load": "known"}
     replaces = {
         "accumulate": "ivlnce_tpu/mapping/mapper.py:333",
         "rasterize": "ivlnce_tpu/mapping/mapper.py:393",
+        "known_load": "ivlnce_tpu/mapping/mapper.py:510",
     }
     line = {"kernels": [
         {
@@ -624,7 +1060,7 @@ def main() -> int:
             "route": "cuda",
             "source": "ivlnce_tpu_torch/csrc/mapper_kernels.cu",
             "replaces": replaces[k],
-            "launches": e2e["launches"][k],
+            "launches": e2e[kernel_path[k]]["launches"][k],
             "max_abs_err": worst[k],
             "match": worst[k] == 0,
             "ms": timing[k]["ms"],
@@ -634,9 +1070,12 @@ def main() -> int:
             "library_ms": None,
             "yardstick_ms": timing[k]["yardstick_ms"],
         }
-        for k in ("accumulate", "rasterize")
+        for k in ("accumulate", "rasterize", "known_load")
     ]}
-    print(json.dumps({"end_to_end": e2e, "trace": trace}))
+    print(json.dumps({"end_to_end": e2e, "trace": traces,
+                      "reference": reference,
+                      "known_load_timing": timing["known_load"],
+                      "seconds": time.perf_counter() - t_start}))
     print(card)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

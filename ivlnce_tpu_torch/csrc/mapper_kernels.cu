@@ -1,5 +1,6 @@
-// Mapper kernels for Hopper (sm_90a): the world-grid accumulate (K1) and
-// the egocentric rasterize (K2) of ivlnce_tpu_torch/mapping/mapper.py.
+// Mapper kernels for Hopper (sm_90a): the world-grid accumulate (K1), the
+// egocentric rasterize (K2) and the known-map load (K3) of
+// ivlnce_tpu_torch/mapping/mapper.py.
 //
 // K1 replaces the JAX package's sort-based accumulate:
 //   ivlnce_tpu/mapping/mapper.py:333 _accumulate_frame, :300 _flush_list,
@@ -11,6 +12,10 @@
 //   ivlnce_tpu/ops/scatter.py:447 rasterize_occupancy_semantic_sorted,
 //   :273 unpack_aux, :239 float_from_sortable, ivlnce_tpu/ops/geometry.py:191
 //   egocentric_shift, :166 project_to_map_indices.
+// K3 replaces its sort-based known-map load:
+//   ivlnce_tpu/mapping/mapper.py:510 load_points_into_state,
+//   ivlnce_tpu/ops/scatter.py:392 sorted_argmax_grid_update, :244 pack_aux,
+//   :231 sortable_from_float.
 //
 // What bounds them on an H100: bytes. K1 reads 5 bytes per pixel (f32
 // depth, u8 label) and does one 8-byte atomic per kept point into a grid
@@ -21,7 +26,11 @@
 // point instead of reading it back. K2 reads the 192^2 window of the grid
 // (12 bytes per cell) and writes two u8 maps; the 64x64 map's candidate
 // maxima stay in shared memory (32 KiB), so only the window read and the
-// map write touch device memory.
+// map write touch device memory. K3 is K1's two passes without the
+// unprojection: it reads 13 bytes per point (f32 xyz, u8 label) and does
+// one 8-byte atomic per point into the cleared grid, grid-striding over
+// each cloud's real count rather than the padded capacity, so padding
+// costs nothing.
 //
 // Arithmetic matches ivlnce_tpu_torch/ops/scatter.py's plain versions bit
 // for bit: every float operation is an explicit round-to-nearest
@@ -29,6 +38,7 @@
 // reference's compiled form has them (see ops/geometry.py). Build with
 // --fmad=false so the compiler adds none of its own.
 
+#include <algorithm>
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -223,6 +233,85 @@ __global__ void rasterize_kernel(
   }
 }
 
+// One known-map point (cloud l, index i): grid cell, key and payload.
+struct KnownPoint {
+  bool inside;
+  long long cell;
+  int key;
+  int aux;
+};
+
+__device__ __forceinline__ KnownPoint known_point(
+    const float* __restrict__ xyz, const uint8_t* __restrict__ sem,
+    const int* __restrict__ rows, const int* __restrict__ origin, int l,
+    int i, int N, int G, float half, float inv_half) {
+  const size_t p = (size_t)l * N + i;
+  const float x = xyz[3 * p];
+  const float y = xyz[3 * p + 1];
+  const float z = xyz[3 * p + 2];
+  const int r_abs = __float2int_rn(__fmul_rn(z, inv_half));
+  const int c_abs = __float2int_rn(__fmul_rn(x, inv_half));
+  const int r = r_abs - origin[2 * l];
+  const int c = c_abs - origin[2 * l + 1];
+  KnownPoint out;
+  out.inside = r >= 0 && r < G && c >= 0 && c < G;
+  out.cell = ((long long)rows[l] * G + r) * G + c;
+  out.key = sortable_from_float(y);
+  out.aux = (quantize(x, c_abs, half, inv_half) << 18) |
+            (quantize(z, r_abs, half, inv_half) << 4) | (sem[p] & 0xF);
+  return out;
+}
+
+// K3 pass 1: per cell, the 64-bit max of key << 32 | (0xFFFFFFFE - i) over
+// the cloud's first counts[l] points, grid-strided; points off the grid
+// are summed per warp into dropped.
+__global__ void known_load_max(
+    long long* __restrict__ word, int* __restrict__ dropped,
+    const int* __restrict__ rows, const int* __restrict__ origin,
+    const float* __restrict__ xyz, const uint8_t* __restrict__ sem,
+    const int* __restrict__ counts, int N, int G, float half,
+    float inv_half) {
+  const int l = blockIdx.y;
+  const int count = min(counts[l], N);
+  int lost = 0;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < count;
+       i += gridDim.x * blockDim.x) {
+    const KnownPoint kp =
+        known_point(xyz, sem, rows, origin, l, i, N, G, half, inv_half);
+    if (kp.inside) {
+      atomicMax(word + kp.cell, make_word(kp.key, 0xFFFFFFFEu - (unsigned)i));
+    } else {
+      ++lost;
+    }
+  }
+  lost = __reduce_add_sync(0xFFFFFFFFu, lost);
+  if ((threadIdx.x & 31) == 0 && lost != 0) {
+    atomicAdd(dropped + rows[l], lost);
+  }
+}
+
+// K3 pass 2: the point whose word survived writes its payload and becomes
+// the cell's stored point.
+__global__ void known_load_commit(
+    long long* __restrict__ word, int* __restrict__ aux,
+    const int* __restrict__ rows, const int* __restrict__ origin,
+    const float* __restrict__ xyz, const uint8_t* __restrict__ sem,
+    const int* __restrict__ counts, int N, int G, float half,
+    float inv_half) {
+  const int l = blockIdx.y;
+  const int count = min(counts[l], N);
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < count;
+       i += gridDim.x * blockDim.x) {
+    const KnownPoint kp =
+        known_point(xyz, sem, rows, origin, l, i, N, G, half, inv_half);
+    if (kp.inside &&
+        word[kp.cell] == make_word(kp.key, 0xFFFFFFFEu - (unsigned)i)) {
+      aux[kp.cell] = kp.aux;
+      word[kp.cell] = make_word(kp.key, kIncumbentLow);
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int mapper_accumulate(
@@ -260,6 +349,25 @@ extern "C" int mapper_rasterize(
   rasterize_kernel<<<B, 1024, smem, stream>>>(
       word, aux, start, origin, lane, occupancy, semantic, G, window, rows,
       cols, half, rq, half_h, half_w, inv_res);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mapper_known_load(
+    long long* word, int* aux, int* dropped, const int* rows,
+    const int* origin, const float* xyz, const uint8_t* sem,
+    const int* counts, int L, int N, int G, float half, float inv_half,
+    cudaStream_t stream) {
+  if (L == 0) return 0;
+  // up to 128 blocks per cloud, each thread striding over its points
+  const int threads = 256;
+  const dim3 grid(std::max(1, std::min((N + threads - 1) / threads, 128)),
+                  L);
+  known_load_max<<<grid, threads, 0, stream>>>(
+      word, dropped, rows, origin, xyz, sem, counts, N, G, half, inv_half);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  known_load_commit<<<grid, threads, 0, stream>>>(
+      word, aux, rows, origin, xyz, sem, counts, N, G, half, inv_half);
   return (int)cudaGetLastError();
 }
 

@@ -4,7 +4,10 @@
 Per step and lane: unproject the depth frame to world points, keep the
 highest point per half-resolution world cell in a bounded world grid
 (``ops.scatter.accumulate``), then rasterize the egocentric occupancy and
-semantic maps around the robot (``ops.scatter.rasterize``).
+semantic maps around the robot (``ops.scatter.rasterize``). In known-map
+mode a scene's point cloud is loaded into the grid once
+(``load_points_into_state``, ``ops.scatter.known_load``) and steps only
+rasterize.
 
 State layout. The JAX package keeps a sorted compact list of recent cells
 and flushes it into its dense grid now and then, because scatters
@@ -152,10 +155,10 @@ def _host(a) -> np.ndarray:
 
 
 class StepInputs(NamedTuple):
-    """Per-step device inputs of the two mapper ops."""
+    """Per-step device inputs of the accumulate and rasterize ops."""
 
     depth: torch.Tensor  # (B, H, W) float32
-    semantics: torch.Tensor  # (B, H, W) uint8
+    semantics: Optional[torch.Tensor]  # (B, H, W) uint8; None: no accumulate
     lane_acc: torch.Tensor  # (B, ACC_LANE_COLS) float32
     origin: torch.Tensor  # (B, 2) int32
     rays_x: torch.Tensor  # (W,) float32, depth scale folded in
@@ -164,22 +167,32 @@ class StepInputs(NamedTuple):
     lane_ras: torch.Tensor  # (B, RAS_LANE_COLS) float32
 
 
+def _grid_origins(center_x, center_z, params: MapperParams) -> np.ndarray:
+    """(B, 2) grid origin cells centring the grid on world (x, z)."""
+    r, c = _world_cells(center_x, center_z, params.half_res)
+    half = params.grid_cells // 2
+    return np.stack([r - half, c - half], -1).astype(np.int32)
+
+
 def step_inputs(
     params: MapperParams,
     state: MapperState,
     depth: torch.Tensor,
-    semantics: torch.Tensor,
+    semantics: Optional[torch.Tensor],
     pose,
     elevation,
     heading,
     not_done_masks,
+    scene_center=None,
 ) -> StepInputs:
     """Host half of a step: clear finished lanes, set new lanes' origins
-    (both in place) and build the ops' per-lane inputs."""
+    (both in place) and build the ops' per-lane inputs. New origins centre
+    the grid on ``scene_center`` (B, 2) world (x, z) when given, else on
+    the robot; the raster window always centres on the robot."""
     params.validate()
     if depth.dim() == 4:
         depth = depth[..., 0]
-    if semantics.dim() == 4:
+    if semantics is not None and semantics.dim() == 4:
         semantics = semantics[..., 0]
     pose = _host(pose)
     elevation = _host(elevation)
@@ -192,9 +205,11 @@ def step_inputs(
     half = params.half_res
     clear_lanes(state, _host(not_done_masks) != 0)
 
-    # a lane's grid is centred on its robot at the first step after reset
+    # a lane's grid is centred on its scene or its robot at the first step
+    # after reset
     r0, c0 = _world_cells(pose[:, 0], pose[:, 2], half)
-    new_origin = np.stack([r0 - g // 2, c0 - g // 2], -1).astype(np.int32)
+    center = pose[:, [0, 2]] if scene_center is None else _host(scene_center)
+    new_origin = _grid_origins(center[:, 0], center[:, 1], params)
     state.origin = np.where(
         state.origin_set[:, None], state.origin, new_origin
     ).astype(np.int32)
@@ -245,7 +260,8 @@ def step_inputs(
 
     return StepInputs(
         depth=depth.float().contiguous(),
-        semantics=semantics.to(torch.uint8).contiguous(),
+        semantics=(None if semantics is None
+                   else semantics.to(torch.uint8).contiguous()),
         lane_acc=dev(lane_acc),
         origin=dev(state.origin),
         rays_x=rays_x[0].contiguous().to(device),
@@ -259,25 +275,104 @@ def mapper_step(
     params: MapperParams,
     state: MapperState,
     depth: torch.Tensor,  # (B, H, W) or (B, H, W, 1) normalized [0, 1]
-    semantics: torch.Tensor,  # (B, H, W) uint8 labels
+    semantics: Optional[torch.Tensor],  # (B, H, W) uint8 labels
     pose,  # (B, 3) host array: world camera position
     elevation,  # (B,) host array, or (B, 2) orientation [elev, heading]
     heading: Optional[np.ndarray],  # (B,), or None with (B, 2) above
     not_done_masks,  # (B,) host array: 0 clears the lane's world state
+    update_world: bool = True,
+    scene_center=None,  # (B, 2) host array: world (x, z)
 ) -> Tuple[MapperState, torch.Tensor, torch.Tensor]:
     """One mapping step on ``depth``'s device: returns (state,
     occupancy_map, semantic_map), maps (B, rows, cols) uint8. ``state`` is
-    updated in place."""
+    updated in place.
+
+    ``update_world=False`` skips the frame accumulation (known-map mode,
+    where the grid was preloaded by ``load_points_into_state``);
+    ``semantics`` may then be None. ``scene_center`` centres new lanes'
+    grids on their scene instead of the robot (``step_inputs``)."""
     inp = step_inputs(params, state, depth, semantics, pose, elevation,
-                      heading, not_done_masks)
-    S.accumulate(
-        state.word, state.aux, state.dropped, inp.depth, inp.semantics,
-        inp.lane_acc, inp.origin, inp.rays_x, inp.rays_y,
-        FRAME_DEPTH_MIN, FRAME_DEPTH_MAX, DEPTH_SCALE_METERS,
-        params.half_res,
-    )
+                      heading, not_done_masks, scene_center)
+    if update_world:
+        S.accumulate(
+            state.word, state.aux, state.dropped, inp.depth, inp.semantics,
+            inp.lane_acc, inp.origin, inp.rays_x, inp.rays_y,
+            FRAME_DEPTH_MIN, FRAME_DEPTH_MAX, DEPTH_SCALE_METERS,
+            params.half_res,
+        )
     occ, sem = S.rasterize(
         state.word, state.aux, inp.start, inp.origin, inp.lane_ras,
         params.window_cells, params.map_dims, params.half_res,
     )
     return state, occ, sem
+
+
+def prepare_load(
+    params: MapperParams,
+    state: MapperState,
+    lanes,  # (L,) host ints: state rows to load
+    center_xz,  # (L, 2) host array: world (x, z) each grid centres on
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Host half of a known-map load, in place: clear rows ``lanes``
+    (``dropped`` stays) and centre their grids on ``center_xz``. Returns
+    K3's ``rows`` (L,) and ``origin`` (L, 2) int32 on the state's device."""
+    lanes = np.asarray(lanes, np.int64).reshape(-1)
+    keep = np.ones((state.batch_size,), bool)
+    keep[lanes] = False
+    clear_lanes(state, keep)
+    center = _host(center_xz)
+    origin = _grid_origins(center[:, 0], center[:, 1], params)
+    state.origin[lanes] = origin
+    state.origin_set[lanes] = True
+    dev = state.word.device
+    return (torch.from_numpy(lanes.astype(np.int32)).to(dev),
+            torch.from_numpy(origin).to(dev))
+
+
+def load_lanes(
+    params: MapperParams,
+    state: MapperState,
+    lanes,  # (L,) host ints: state rows to load
+    xyz: torch.Tensor,  # (L, N, 3) float32 world points, on the state's device
+    sem: torch.Tensor,  # (L, N) uint8
+    counts: torch.Tensor,  # (L,) int32 points per cloud
+    center_xz,  # (L, 2) host array: world (x, z) each grid centres on
+) -> MapperState:
+    """Preload known point clouds into state rows ``lanes``, in place:
+    ``prepare_load``, then K3 (``ops.scatter.known_load``)."""
+    if not len(np.asarray(lanes).reshape(-1)):
+        return state
+    rows, origin = prepare_load(params, state, lanes, center_xz)
+    S.known_load(state.word, state.aux, state.dropped, rows, origin, xyz,
+                 sem, counts, params.half_res)
+    return state
+
+
+def load_points_into_state(
+    params: MapperParams,
+    state: MapperState,
+    lane_mask,  # (B,) host bool: lanes to load into
+    xyz: torch.Tensor,  # (B, N, 3) padded point clouds (world frame)
+    sem: torch.Tensor,  # (B, N) uint8
+    num_points,  # (B,) host ints: actual point counts
+    origin_pose,  # (B, 3) host array: pose used to centre the grid
+    scene_center=None,  # (B, 2) host array: world (x, z)
+) -> MapperState:
+    """The JAX package's ``load_points_into_state`` (known-map mode,
+    reference mapper.py:851-881): load lanes where ``lane_mask``, their
+    grids centred on ``scene_center`` when given, else on
+    ``origin_pose``. Updates ``state`` in place and returns it."""
+    lanes = np.nonzero(np.asarray(lane_mask).reshape(-1).astype(bool))[0]
+    if scene_center is None:
+        center = _host(origin_pose)[:, [0, 2]]
+    else:
+        center = _host(scene_center)
+    dev = state.word.device
+    idx = torch.from_numpy(lanes).to(xyz.device)
+    counts = np.asarray(num_points, np.int32).reshape(-1)[lanes]
+    return load_lanes(
+        params, state, lanes,
+        xyz.index_select(0, idx).to(dev, torch.float32).contiguous(),
+        sem.index_select(0, idx).to(dev, torch.uint8).contiguous(),
+        torch.from_numpy(counts).to(dev), center[lanes],
+    )

@@ -2,7 +2,8 @@
 
 ``params_from_jax(np_params)`` turns the nested dict of numpy arrays the
 JAX MapCMA policy holds (for example from ``jax.device_get``) into the
-port's ``MapCMAPolicy`` state_dict."""
+port's ``MapCMAPolicy`` state_dict; ``rednet_params_from_jax`` does the
+same for RedNet."""
 
 from __future__ import annotations
 
@@ -51,11 +52,25 @@ def _leaf(path: str, value: np.ndarray):
 
 def params_from_jax(np_params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX MapCMA policy params -> the port's MapCMAPolicy state_dict."""
+    return _state_dict(np_params, "net.")
+
+
+def rednet_params_from_jax(np_params: Dict[str, Any]
+                           ) -> Dict[str, torch.Tensor]:
+    """JAX RedNet params (``init_rednet``'s tree) -> the port's RedNet
+    state_dict. Convolution weights go HWIO -> OIHW and transposed
+    convolution weights HWOI -> IOHW, one permutation for both: the
+    inverse of the JAX package's torch-checkpoint import."""
+    return _state_dict(np_params, "")
+
+
+def _state_dict(np_params: Dict[str, Any], prefix: str
+                ) -> Dict[str, torch.Tensor]:
     state: Dict[str, torch.Tensor] = {}
     for path, value in _flatten(np_params).items():
         name, value = _leaf(path, value)
         if not name.startswith("action_distribution."):
-            name = "net." + name
+            name = prefix + name
         state[name] = torch.from_numpy(np.array(value))
         if name.endswith("running_var"):
             state[name[: -len("running_var")] + "num_batches_tracked"] = (

@@ -115,3 +115,36 @@ class VlnResnetDepthEncoder(nn.Module):
         emb = self.spatial_embeddings.weight  # (h*w, D)
         spatial = emb.t().reshape(1, -1, h, w).expand(b, -1, h, w)
         return torch.cat([x, spatial], dim=1)
+
+
+class BNBottleneck(nn.Module):
+    """torchvision's BatchNorm ResNet-50 bottleneck, as RedNet's encoder
+    streams use it (``ivlnce_tpu/models/resnet.py:190-220``). Run in eval
+    mode: the norms apply their running statistics."""
+
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int,
+                 downsample: bool):
+        super().__init__()
+        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.bn1 = nn.BatchNorm2d(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
+        self.bn2 = nn.BatchNorm2d(planes)
+        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.bn3 = nn.BatchNorm2d(planes * 4)
+        self.downsample = (
+            nn.Sequential(
+                nn.Conv2d(inplanes, planes * 4, 1, stride, bias=False),
+                nn.BatchNorm2d(planes * 4),
+            )
+            if downsample
+            else None
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = torch.relu(self.bn1(self.conv1(x)))
+        out = torch.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        identity = x if self.downsample is None else self.downsample(x)
+        return torch.relu(out + identity)

@@ -77,6 +77,8 @@ def library() -> ctypes.CDLL:
     lib.mapper_accumulate.restype = i
     lib.mapper_rasterize.argtypes = [p] * 7 + [i] * 5 + [f] * 5 + [p]
     lib.mapper_rasterize.restype = i
+    lib.mapper_known_load.argtypes = [p] * 8 + [i] * 3 + [f] * 2 + [p]
+    lib.mapper_known_load.restype = i
     lib.mapper_error_string.argtypes = [i]
     lib.mapper_error_string.restype = ctypes.c_char_p
     _lib = lib

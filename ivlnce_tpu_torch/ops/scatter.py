@@ -1,4 +1,4 @@
-"""Packed-key helpers and the mapper's two device ops: the PyTorch
+"""Packed-key helpers and the mapper's three device ops: the PyTorch
 counterpart of what ``mapping/mapper.py`` needs from
 ``ivlnce_tpu/ops/scatter.py``.
 
@@ -10,8 +10,8 @@ compiles it inside ``mapper_step`` (see ``ops/geometry.py``): divisions
 by constants are reciprocal multiplications and a multiply feeding an add
 is one fused multiply-add.
 
-The two ops, ``accumulate`` (K1) and ``rasterize`` (K2), each have a
-plain PyTorch version here and a CUDA kernel in
+The ops, ``accumulate`` (K1), ``rasterize`` (K2) and ``known_load``
+(K3), each have a plain PyTorch version here and a CUDA kernel in
 ``csrc/mapper_kernels.cu``. The wrapper picks by the tensors' device: CPU
 tensors run the plain version, CUDA tensors the kernel (there is no
 other path).
@@ -179,15 +179,26 @@ def accumulate_plain(
     dropped += (valid & ~inside).sum(1, dtype=torch.int32)
     valid &= inside
 
-    key = sortable_from_float(hy)
     payload = pack_aux(
         pts[:, :, 0], pts[:, :, 2], semantics.reshape(b, n), r_abs, c_abs,
         half_res,
     )
-    pix = torch.arange(n, device=depth.device, dtype=torch.int64)
-    new_word = (key.to(torch.int64) << 32) | (0xFFFFFFFE - pix)[None, :]
-    lane = torch.arange(b, device=depth.device, dtype=torch.int64)[:, None]
-    cell = (lane * g * g + r.to(torch.int64) * g + c.to(torch.int64))[valid]
+    lane = torch.arange(b, device=depth.device, dtype=torch.int64)
+    _argmax_merge(word, aux, lane, r, c, hy, payload, valid)
+
+
+def _argmax_merge(word, aux, rows, r, c, height, payload, valid) -> None:
+    """The argmax-by-height merge K1 and K3 share, in place: point j of
+    ``rows[i]`` goes to grid cell (r, c) when ``valid``. Per cell a 64-bit
+    max over ``key << 32 | (0xFFFFFFFE - j)`` against the stored word
+    (low word 0xFFFFFFFF), then the winners write their payload and become
+    stored points."""
+    g = word.shape[1]
+    key = sortable_from_float(height)
+    idx = torch.arange(key.shape[1], device=key.device, dtype=torch.int64)
+    new_word = (key.to(torch.int64) << 32) | (0xFFFFFFFE - idx)[None, :]
+    cell = (rows[:, None] * g * g + r.to(torch.int64) * g
+            + c.to(torch.int64))[valid]
     new_word = new_word[valid]
     flat_word = word.view(-1)
     flat_word.scatter_reduce_(0, cell, new_word, "amax")
@@ -195,6 +206,48 @@ def accumulate_plain(
     cell = cell[win]
     aux.view(-1)[cell] = payload[valid][win]
     flat_word[cell] = (key[valid][win].to(torch.int64) << 32) | INCUMBENT_LOW
+
+
+# -----------------------------------------------------------------------------
+# K3 known-map load: plain version
+# -----------------------------------------------------------------------------
+def known_load_plain(
+    word: torch.Tensor,
+    aux: torch.Tensor,
+    dropped: torch.Tensor,
+    rows: torch.Tensor,
+    origin: torch.Tensor,
+    xyz: torch.Tensor,
+    sem: torch.Tensor,
+    counts: torch.Tensor,
+    half_res: float,
+) -> None:
+    """Load one known point cloud into each grid row ``rows[i]``, in place
+    (the JAX package's ``sorted_argmax_grid_update`` under
+    ``load_points_into_state``).
+
+    Point j of cloud i counts when j < counts[i]. Its half-resolution cell
+    is ``round(z / h), round(x / h)`` less the row's ``origin[i]``; points
+    off the grid add to ``dropped[rows[i]]``. A point takes its cell only
+    with a key strictly above the stored one, and among equal keys within
+    the load the lowest j wins (``_argmax_merge``). Other rows and points
+    are untouched."""
+    n = xyz.shape[1]
+    g = word.shape[1]
+    j = torch.arange(n, device=xyz.device)
+    valid = j[None, :] < counts[:, None]
+    inv = G.f32_reciprocal(half_res)
+    r_abs = torch.round(xyz[:, :, 2] * inv).to(torch.int32)
+    c_abs = torch.round(xyz[:, :, 0] * inv).to(torch.int32)
+    r = r_abs - origin[:, 0:1]
+    c = c_abs - origin[:, 1:2]
+    inside = (r >= 0) & (r < g) & (c >= 0) & (c < g)
+    rows = rows.to(torch.int64)
+    dropped.index_add_(0, rows, (valid & ~inside).sum(1, dtype=torch.int32))
+    valid &= inside
+    payload = pack_aux(xyz[:, :, 0], xyz[:, :, 2], sem, r_abs, c_abs,
+                       half_res)
+    _argmax_merge(word, aux, rows, r, c, xyz[:, :, 1], payload, valid)
 
 
 # -----------------------------------------------------------------------------
@@ -280,12 +333,12 @@ class LaunchCounter:
     """Kernel launches per op; the plain version never counts."""
 
     def __init__(self):
-        self.accumulate = 0
-        self.rasterize = 0
+        self.reset()
 
     def reset(self) -> None:
         self.accumulate = 0
         self.rasterize = 0
+        self.known_load = 0
 
 
 launches = LaunchCounter()
@@ -390,3 +443,39 @@ def rasterize(
     launches.rasterize += 1
     kernels.check(err, "mapper_rasterize")
     return occupancy, semantic
+
+
+def known_load(
+    word, aux, dropped, rows, origin, xyz, sem, counts, half_res: float,
+) -> None:
+    """K3: load known point clouds into grid rows, in place (see
+    ``known_load_plain`` for the semantics). ``rows``, ``origin`` and
+    ``counts`` are per cloud; ``xyz`` is (L, N, 3)."""
+    l, n = sem.shape
+    b, g = word.shape[0], word.shape[1]
+    dev = word.device
+    _check(word, "word", torch.int64, (b, g, g), dev)
+    _check(aux, "aux", torch.int32, (b, g, g), dev)
+    _check(dropped, "dropped", torch.int32, (b,), dev)
+    _check(rows, "rows", torch.int32, (l,), dev)
+    _check(origin, "origin", torch.int32, (l, 2), dev)
+    _check(xyz, "xyz", torch.float32, (l, n, 3), dev)
+    _check(sem, "sem", torch.uint8, (l, n), dev)
+    _check(counts, "counts", torch.int32, (l,), dev)
+    if dev.type == "cpu":
+        known_load_plain(word, aux, dropped, rows, origin, xyz, sem, counts,
+                         half_res)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"known_load: unsupported device {dev}")
+    from ivlnce_tpu_torch.ops import kernels
+
+    lib = kernels.library()
+    f = ctypes.c_float
+    err = lib.mapper_known_load(
+        _ptr(word), _ptr(aux), _ptr(dropped), _ptr(rows), _ptr(origin),
+        _ptr(xyz), _ptr(sem), _ptr(counts), l, n, g,
+        f(half_res), f(G.f32_reciprocal(half_res)), _stream(dev),
+    )
+    launches.known_load += 1
+    kernels.check(err, "mapper_known_load")

@@ -119,8 +119,9 @@ class BaseVLNCETrainer:
     # -- one env step on the device ---------------------------------------------
     def _wire_device_obs(self, batch, transform) -> Dict[str, Any]:
         """Full-width obs for one step: only the keys the step reads; depth
-        as uint16, uploaded with the semantic frame; pose and orientation
-        stay on the host; instruction tokens become cached features."""
+        as uint16, uploaded with the semantic or RGB frame; pose,
+        orientation and scene centres stay on the host; instruction tokens
+        become cached features."""
         wire_keys = batching.wire_obs_keys(self.policy, transform)
         dobs = {
             k: self._expand_rows(v)
@@ -132,10 +133,8 @@ class BaseVLNCETrainer:
         dobs = batching.encode_wire_obs(
             dobs, self.config.TPU.wire_depth_uint16
         )
-        host_keys = ("world_robot_pose", "world_robot_orientation",
-                     "instruction")
         for k, v in dobs.items():
-            if k not in host_keys:
+            if k not in batching.HOST_OBS_KEYS:
                 dobs[k] = torch.from_numpy(np.ascontiguousarray(v)).to(
                     self.device
                 )
@@ -171,7 +170,12 @@ class BaseVLNCETrainer:
             self._reset_lanes(rnn_states.shape[0])
         rows = self._lane_rows
         transform = self.obs_transforms[0]
-        transform.host_prepare(self._num_rows)
+        # before the wire obs: host_prepare may add scene_center to the
+        # batch besides allocating state and preloading known maps
+        transform.host_prepare(
+            batch, np.asarray(reset_masks).reshape(-1), rows=rows,
+            num_rows=self._num_rows,
+        )
         obs = batching.decode_wire_obs(self._wire_device_obs(batch, transform))
         reset_full = self._expand_rows(
             np.asarray(reset_masks, np.float32).reshape(-1, 1)
@@ -185,7 +189,8 @@ class BaseVLNCETrainer:
         prev_full = dev(prev_actions, torch.int64)
         with record_function("mapper"):
             state, occ, sem = self._device_step(
-                transform.state, obs, reset_full.reshape(-1)
+                transform.state, obs, reset_full.reshape(-1),
+                transform.rednet,
             )
         transform.state = state
         pobs = dict(obs, occupancy_map=occ, semantic_map=sem)

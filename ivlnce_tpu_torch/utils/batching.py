@@ -68,12 +68,18 @@ def batch_obs(
 # the task:
 #   * only keys the device step reads are uploaded
 #     (policy.device_obs_keys | transform.device_obs_keys: MapCMA with GT
-#     semantics never reads rgb);
+#     semantics never reads rgb, with predicted semantics never
+#     semantic12);
 #   * normalized [0,1] float32 depth travels as uint16 and is expanded on
 #     the card (<= 7.7e-6 quantization = 0.08 mm at the 10 m depth range,
 #     against the mapper's 0.05 m cells).
 
 DEPTH_WIRE_SCALE = 65535.0
+
+# wire keys the device step reads on the host (per-lane scalars); every
+# other wire key is uploaded, rgb and semantic12 as uint8
+HOST_OBS_KEYS = frozenset({"world_robot_pose", "world_robot_orientation",
+                           "scene_center", "instruction"})
 
 
 def encode_wire_obs(dobs: Dict[str, Any], depth_uint16: bool = True) -> Dict:

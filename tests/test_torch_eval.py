@@ -45,6 +45,17 @@ TOURS = {"fakeval_seen0": [["1", "2"]], "fakeval_seen1": [["14", "15"]]}
 TOUR_GT_IDS = ("0", "3")
 
 
+@pytest.fixture
+def one_torch_thread():
+    """The eval runs thousands of tiny ops: with one intra-op thread they
+    do not contend with other test processes for the cores (several
+    workers each spinning a full thread pool ran this test 8x slower)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _tiny_dataset(root):
     """val_seen cut to the TOURS episodes, with their GT files."""
     keep = {e for tours in TOURS.values() for t in tours for e in t}
@@ -108,7 +119,8 @@ def _load(results, pattern):
         return json.load(f)
 
 
-def test_iterative_eval_matches_jax(tmp_path, monkeypatch):
+def test_iterative_eval_matches_jax(tmp_path, monkeypatch,
+                                    one_torch_thread):
     os.chdir(REPO)
     root = str(tmp_path)
     _tiny_dataset(os.path.join(root, "ds"))

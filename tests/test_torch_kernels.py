@@ -93,3 +93,41 @@ def test_wrapper_refuses_mixed_devices(card):
                      torch.zeros(1, 2, dtype=torch.int32, device=card),
                      torch.zeros(8), torch.zeros(8, device=card),
                      0.01, 0.99, 10.0, 0.05)
+
+
+def test_known_load_equals_plain_version(card):
+    """K3 over two loads (the second into lanes 0 and 2 only) of clouds
+    with off-grid points, equal-height runs and padding past the counts."""
+    from ivlnce_tpu_torch.mapping.camera import CameraParameters
+
+    rng = np.random.default_rng(3)
+    g, b, n = 256, 3, 8192
+    params = M.MapperParams(CameraParameters(1.2, (16, 16), 0.1), 6.4, 6.4,
+                            0.1, grid_cells=g, window_cells=192)
+    kern = M.init_state(b, g, card)
+    plain = M.init_state(b, g, card)
+    pose = np.array([[0.0, 1.25, 0.0], [2.0, 1.25, -1.0],
+                     [-3.0, 1.25, 4.0]], np.float32)
+    before = S.launches.known_load
+    for lane_mask in ([1, 1, 1], [1, 0, 1]):
+        xyz = rng.uniform(-8, 8, (b, n, 3)).astype(np.float32)
+        xyz[:, :, 1] = rng.choice(np.float32([0.2, 0.5, 0.8]), (b, n))
+        xyz[:, : n // 4, 0] = np.round(xyz[:, : n // 4, 0] * 40) / 40
+        sem = rng.integers(0, 13, (b, n)).astype(np.uint8)
+        counts = np.array([n, n // 2, n // 3], np.int32)
+        lanes = np.nonzero(lane_mask)[0]
+        d_xyz = torch.from_numpy(xyz[lanes]).to(card)
+        d_sem = torch.from_numpy(sem[lanes]).to(card)
+        d_counts = torch.from_numpy(counts[lanes]).to(card)
+        M.load_lanes(params, kern, lanes, d_xyz, d_sem, d_counts,
+                     pose[lanes][:, [0, 2]])
+        rows, origin = M.prepare_load(params, plain, lanes,
+                                      pose[lanes][:, [0, 2]])
+        S.known_load_plain(plain.word, plain.aux, plain.dropped, rows,
+                           origin, d_xyz, d_sem, d_counts, params.half_res)
+        torch.cuda.synchronize()
+        assert torch.equal(kern.word, plain.word)
+        assert torch.equal(kern.aux, plain.aux)
+        assert torch.equal(kern.dropped, plain.dropped)
+    assert int(kern.dropped.sum()) > 0
+    assert S.launches.known_load == before + 2

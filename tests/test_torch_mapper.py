@@ -266,11 +266,11 @@ def test_obs_transform_keeps_lane_state_full_width(rng):
     mapper = GTSemanticsIterativeMapper(tp.camera, MapDims(6.4, 6.4, 0.1),
                                         torch.device("cpu"), grid_cells=64,
                                         window_cells=48)
-    mapper.host_prepare(3)
+    mapper.host_prepare({}, np.ones(3), num_rows=3)
     state = mapper.state
     state.word[:, 0, 0] = torch.arange(3)
     state.dropped[:] = torch.tensor([4, 5, 6], dtype=torch.int32)
-    mapper.host_prepare(3)
+    mapper.host_prepare({}, np.ones(3), num_rows=3)
     assert mapper.state is state
     assert mapper.state.word[:, 0, 0].tolist() == [0, 1, 2]
     assert mapper.dropped_point_count() == 15
