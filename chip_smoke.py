@@ -4,13 +4,19 @@
 
 Phases (any failure ends the run with a nonzero exit):
 1. the card's name and power limit;
-2. build the CUDA kernels from ivlnce_tpu_torch/csrc;
-3. each kernel against its plain PyTorch version on the card: K1 and K2
-   on a seeded 12-step walk at main-path shapes (B=16, 256x256 frames,
-   1024^2 grid, 192^2 window, 64x64 map), K3 on two loads of seeded
-   clouds (B=16, 2^18 points, 1024^2 grid, the second into some lanes
-   only): exact equality everywhere;
-4. kernel, plain-version and bound times at B=64 (CUDA events);
+2. build the CUDA kernels from ivlnce_tpu_torch/csrc, and show the
+   registers and shared memory ``-Xptxas -v`` gives the current K1 and K2
+   kernels;
+3. each kernel against its plain PyTorch version on the card, exactly:
+   K1 and K2 (current design) on a seeded noise walk and a FakeSim walk
+   at main-path shapes (B=16, 256x256 frames, 1024^2 grid, 192^2 window,
+   64x64 map, 12 steps) and on tie frames (B=3 at those shapes; B=1 at a
+   100-cell window of a 256^2 grid), K3 on two loads of seeded clouds
+   (B=16, 2^18 points, 1024^2 grid, the second into some lanes only);
+4. K1 and K2 at B=64 and B=3 on a noise walk and a FakeSim walk: the
+   current design and the first (kept under ``*_v1`` entry points) in
+   turns, the plain versions and the bound (CUDA events), and
+   each design's kernels apart (``torch.profiler``); K3 at B=64;
 5. full-width steps on the card against the same steps on the CPU (plain
    versions): a mapper + MapCMA step (maps equal, logits and RNN states
    close), a known-map preload and three steps (maps equal), and a RedNet
@@ -18,7 +24,8 @@ Phases (any failure ends the run with a nonzero exit):
 6. the port's iterative MapCMA evaluation through its entry point
    (``ivlnce_tpu_torch.run.run_exp``) at full width
    (configs/fake/map_cma_eval_iterative.yaml, seeded random weights),
-   with the kernels' launch counters set to 0 before and read after;
+   with the kernels' launch counters set to 0 before and read after (and
+   the first designs' counters unchanged);
 7. the same evaluation again with a window of policy steps traced by
    ``torch.profiler``: the device time of each named range of the step
    (mapper, semantics, encoders, GRU + attention, instruction encoder)
@@ -35,6 +42,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import bisect
+import ctypes
 import glob
 import json
 import math
@@ -68,14 +76,70 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn) -> float:
-    """Device time (ms) of one call of ``fn``, with CUDA events."""
+def ptxas_usage(log: str) -> dict:
+    """``-Xptxas -v``'s resource lines (registers, shared memory, spills)
+    of the current K1 and K2 kernels, by kernel name."""
+    wanted = [n for v in KERNEL_NAMES["current"].values() for n in v]
+    out, entry = {}, None
+    for raw in log.splitlines():
+        line = raw.strip()
+        if "Compiling entry function" in line:
+            entry = next((n for n in wanted if n in line), None)
+        elif entry and ("stack frame" in line or "Used" in line):
+            text = line.split(":", 1)[-1].strip() if "Used" in line else line
+            out[entry] = f"{out[entry]}; {text}" if entry in out else text
+    if set(out) != set(wanted):
+        raise SystemExit(f"no ptxas resource lines for "
+                         f"{sorted(set(wanted) - set(out))}")
+    return out
+
+
+# the card's busy wait before a timed call (ms), and its clock cycles per
+# ms, measured once
+SPIN_MS = 2.0
+_spin_cycles_per_ms = None
+
+
+def _spin(ms: float) -> None:
+    """Keep the card busy for about ``ms`` ms (a kernel that spins for a
+    number of clock cycles, calibrated on first use)."""
+    global _spin_cycles_per_ms
+    if _spin_cycles_per_ms is None:
+        n = 1_000_000
+        torch.cuda._sleep(n)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(n)
+        b.record()
+        b.synchronize()
+        _spin_cycles_per_ms = n / a.elapsed_time(b)
+    torch.cuda._sleep(int(_spin_cycles_per_ms * ms))
+
+
+def cuda_ms(fn, waits_on_card: bool = False) -> float:
+    """Device time (ms) of one call of ``fn``, between two CUDA events.
+
+    The card spins for SPIN_MS first, so the host has enqueued the whole
+    call before the first event fires: the span holds device time only,
+    not the wrappers' host work (a call enqueued on an idle card is timed
+    from the moment the host began it). A call whose enqueue outlasts the
+    spin fails the run. ``waits_on_card=True`` is for calls that wait on
+    the card themselves (the plain versions' boolean indexing, host-to-
+    device copies): they are timed without the spin, host work included."""
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    if not waits_on_card:
+        _spin(SPIN_MS)
     a.record()
+    t0 = time.perf_counter()
     fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
     b.record()
     b.synchronize()
+    if not waits_on_card and host_ms >= SPIN_MS:
+        raise SystemExit(f"enqueueing a timed call took {host_ms:.3f} ms, "
+                         f"longer than the card's {SPIN_MS} ms spin")
     return a.elapsed_time(b)
 
 
@@ -138,24 +202,21 @@ def _max_abs(pairs) -> float:
     return worst
 
 
-def phase_kernels_vs_plain() -> dict:
-    """K1 and K2 against their plain versions at every step of the walk:
+def phase_kernels_vs_plain(label, params, b, frames, need_drops) -> dict:
+    """K1 and K2 against their plain versions at every step of a walk:
     the largest absolute difference over every output (0 = equal)."""
     from ivlnce_tpu_torch.mapping import mapper as M
     from ivlnce_tpu_torch.ops import scatter as S
 
-    params = mapper_params()
     dev = torch.device("cuda")
-    b = 16
     kern = M.init_state(b, params.grid_cells, dev)
     plain = M.init_state(b, params.grid_cells, dev)
     worst = {"accumulate": 0.0, "rasterize": 0.0}
     consts = (M.FRAME_DEPTH_MIN, M.FRAME_DEPTH_MAX, M.DEPTH_SCALE_METERS,
               params.half_res)
     rargs = (params.window_cells, params.map_dims, params.half_res)
-    for t, (depth, sem, pose, orient, masks) in enumerate(
-        walk(b, 256, 12, seed=0)
-    ):
+    print(f"  {label}:")
+    for t, (depth, sem, pose, orient, masks) in enumerate(frames):
         d = torch.from_numpy(depth).to(dev)
         s = torch.from_numpy(sem).to(dev)
         ik = M.step_inputs(params, kern, d, s, pose, orient, None, masks)
@@ -177,14 +238,48 @@ def phase_kernels_vs_plain() -> dict:
         r_err = _max_abs([(occ_k, occ_p), (sem_k, sem_p)])
         worst["accumulate"] = max(worst["accumulate"], k_err)
         worst["rasterize"] = max(worst["rasterize"], r_err)
-        print(f"  step {t}: accumulate max abs diff {k_err}, rasterize max "
+        print(f"    step {t}: accumulate max abs diff {k_err}, rasterize max "
               f"abs diff {r_err}, occupied map cells {int(occ_k.sum())}, "
               f"dropped so far {int(kern.dropped.sum())}")
         if k_err or r_err:
             raise SystemExit(f"kernel disagrees with its plain version at "
-                             f"step {t}")
-    if int(kern.dropped.sum()) == 0:
-        raise SystemExit("the walk dropped no points: drop counting untested")
+                             f"step {t} of the {label}")
+    if need_drops and int(kern.dropped.sum()) == 0:
+        raise SystemExit(f"the {label} dropped no points: drop counting "
+                         "untested")
+    return worst
+
+
+def phase_kernels_vs_plain_walks() -> dict:
+    """Phase 3's K1 and K2 checks: the noise walk and the FakeSim walk at
+    B=16 and main-path shapes, then the tie frames at main-path shapes
+    (B=3, a lane that sees nothing) and at ragged sizes (B=1, 40^2 frames
+    against 32^2 tiles, G=256, a 100-cell window: 100 rows over an 8-block
+    cluster)."""
+    from ivlnce_tpu_torch.mapping import walks
+    from ivlnce_tpu_torch.mapping.camera import CameraParameters
+    from ivlnce_tpu_torch.mapping.mapper import MapperParams
+
+    params = mapper_params()
+    ragged = MapperParams(
+        camera=CameraParameters(math.radians(90.0), (40, 40), 0.1),
+        map_height_meters=6.4, map_width_meters=6.4, resolution_meters=0.1,
+        grid_cells=256, window_cells=100)
+    runs = [
+        ("noise walk (B=16)", params, 16, walk(16, 256, 12, seed=0), True),
+        ("FakeSim walk (B=16)", params, 16,
+         walks.fakesim_walk(16, 256, 12, seed=0), False),
+        ("tie frames (B=3, lane 2 empty)", params, 3,
+         walks.tie_walk(3, 256, 10, seed=0, edge_step=6.0,
+                        empty_lanes=(2,)), True),
+        ("tie frames (B=1, 40^2 frames, window 100 of G=256)", ragged, 1,
+         walks.tie_walk(1, 40, 10, seed=1, edge_step=2.0), True),
+    ]
+    worst = {"accumulate": 0.0, "rasterize": 0.0}
+    for label, p, b, frames, need_drops in runs:
+        got = phase_kernels_vs_plain(label, p, b, frames, need_drops)
+        for k in worst:
+            worst[k] = max(worst[k], got[k])
     return worst
 
 
@@ -227,98 +322,256 @@ def _k2_in_height(state, inp, params) -> int:
     return n
 
 
-def phase_timing(card: str) -> dict:
-    """Per-step device times at B=64 over the walk (median after the
-    first step), the least time the card could take for the same work
-    (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, the
-    larger), and for K1 a partial yardstick: one ``scatter_reduce_``
-    amax of the frame's packed keys, without filters or payload. No
-    single PyTorch call computes either op with its payload."""
-    from ivlnce_tpu_torch.mapping import mapper as M
+# K1 and K2 launchers by design: the wrappers' current design, the first
+# design kept for comparison, and the plain versions
+def _designs() -> dict:
+    from ivlnce_tpu_torch.ops import kernels
     from ivlnce_tpu_torch.ops import scatter as S
 
-    params = mapper_params()
+    return {
+        "current": (S.accumulate, S.rasterize),
+        "v1": (kernels.accumulate_v1, kernels.rasterize_v1),
+        "plain": (S.accumulate_plain, S.rasterize_plain),
+    }
+
+
+# the kernels each design launches, by op
+KERNEL_NAMES = {
+    "current": {"accumulate": ("accumulate_tile_max",
+                               "accumulate_tile_commit"),
+                "rasterize": ("rasterize_cluster",)},
+    "v1": {"accumulate": ("accumulate_max", "accumulate_commit"),
+           "rasterize": ("rasterize_kernel",)},
+}
+
+
+def _step_ops(params, states, frame):
+    """Per design: the step's inputs (built on that design's state) and
+    the K1 and K2 calls on them."""
+    from ivlnce_tpu_torch.mapping import mapper as M
+
+    depth, sem, pose, orient, masks = frame
     dev = torch.device("cuda")
-    b = 64
-    n_map = params.map_dims.num_rows * params.map_dims.num_cols
+    d = torch.from_numpy(depth).to(dev)
+    s = torch.from_numpy(sem).to(dev)
     consts = (M.FRAME_DEPTH_MIN, M.FRAME_DEPTH_MAX, M.DEPTH_SCALE_METERS,
               params.half_res)
     rargs = (params.window_cells, params.map_dims, params.half_res)
-    out = {k: {"ms": [], "plain_ms": [], "bytes": [], "flops": [],
-               "yardstick_ms": []} for k in ("accumulate", "rasterize")}
-    states = {
-        "kernel": M.init_state(b, params.grid_cells, dev),
-        "plain": M.init_state(b, params.grid_cells, dev),
-    }
+    ops = {}
+    for name, (acc, ras) in _designs().items():
+        if name not in states:
+            continue
+        st = states[name]
+        inp = M.step_inputs(params, st, d, s, pose, orient, None, masks)
+        ops[name] = (
+            inp,
+            lambda acc=acc, st=st, inp=inp: acc(
+                st.word, st.aux, st.dropped, inp.depth, inp.semantics,
+                inp.lane_acc, inp.origin, inp.rays_x, inp.rays_y, *consts),
+            lambda ras=ras, st=st, inp=inp: ras(
+                st.word, st.aux, inp.start, inp.origin, inp.lane_ras,
+                *rargs),
+        )
+    return ops
+
+
+def traced_kernel_ms(fn, names, launches: int) -> dict:
+    """Median device ms per launch of each kernel whose name holds one of
+    ``names``, over one call of ``fn`` traced by ``torch.profiler``, which
+    must launch each ``launches`` times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    durs = defaultdict(list)
+    for ev in events:
+        if ev.get("cat") == "kernel":
+            for n in names:
+                if n in ev.get("name", ""):
+                    durs[n].append(ev["dur"] / 1e3)
+    if any(len(durs[n]) != launches for n in names):
+        raise SystemExit(f"traced {dict((n, len(durs[n])) for n in names)} "
+                         f"launches, expected {launches} of each")
+    return {n: float(np.median(durs[n])) for n in names}
+
+
+def time_walk(card: str, label: str, frames: list, yardstick: bool) -> dict:
+    """K1 and K2 over a walk (median of the steps after the first): the
+    current design and the first in turns (K1: v1 then current at even
+    steps, current then v1 at odd ones, each on its own state; K2: v1,
+    current, current, v1 at every step), the plain versions, the least
+    time the card could take for the same work (bytes over 3.35 TB/s or
+    float32 operations over 67 TFLOP/s, the larger), for K1 at B=64 a
+    partial yardstick (one ``scatter_reduce_`` amax of the frame's packed
+    keys, without filters or payload), and each design's kernels timed
+    apart by ``torch.profiler`` over a replay of the walk. The two designs'
+    grids and maps must be equal at every step."""
+    from ivlnce_tpu_torch.mapping import mapper as M
+
+    params = mapper_params()
+    dev = torch.device("cuda")
+    b = frames[0][0].shape[0]
+    n_map = params.map_dims.num_rows * params.map_dims.num_cols
+    times = {op: {d: [] for d in ("current", "v1", "plain")}
+             for op in ("accumulate", "rasterize")}
+    work = {op: {"bytes": [], "flops": []} for op in times}
+    yard = []
+    states = {d: M.init_state(b, params.grid_cells, dev)
+              for d in ("current", "v1", "plain")}
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    for depth, sem, pose, orient, masks in walk(b, 256, 12, seed=1):
-        d = torch.from_numpy(depth).to(dev)
-        s = torch.from_numpy(sem).to(dev)
-        for name, st in states.items():
-            inp = M.step_inputs(params, st, d, s, pose, orient, None, masks)
-            kernel = name == "kernel"
-            acc = S.accumulate if kernel else S.accumulate_plain
-            ras = S.rasterize if kernel else S.rasterize_plain
-            key = "ms" if kernel else "plain_ms"
-            if kernel:
-                n_pix = inp.depth.numel()
-                touched = _k1_cells(inp, params)
-                before = st.word.clone()
-                out["accumulate"]["flops"].append(n_pix * 40)
-                flat = st.word.clone().view(-1)
-                words = torch.randint(0, 2 ** 62, (n_pix,), device=dev,
-                                      generator=gen)
-                idx = torch.randint(0, flat.numel(), (n_pix,), device=dev,
-                                    generator=gen)
-                out["accumulate"]["yardstick_ms"].append(cuda_ms(
-                    lambda: flat.scatter_reduce_(0, idx, words, "amax")))
-            out["accumulate"][key].append(cuda_ms(
-                lambda: acc(st.word, st.aux, st.dropped, inp.depth,
-                            inp.semantics, inp.lane_acc, inp.origin,
-                            inp.rays_x, inp.rays_y, *consts)))
-            if kernel:
-                # each pixel's depth and label read once; the word of each
-                # cell a kept point lands in read once; word and payload
-                # written once where a new point won the cell; the lane
-                # constants, rays and drop counts
-                changed = int((st.word != before).sum())
-                del before
-                out["accumulate"]["bytes"].append(
-                    n_pix * 5 + touched * 8 + changed * 12
-                    + (inp.lane_acc.numel() + inp.rays_x.numel()
-                       + inp.rays_y.numel()) * 4 + b * 4 * 2)
-            out["rasterize"][key].append(cuda_ms(
-                lambda: ras(st.word, st.aux, inp.start, inp.origin,
-                            inp.lane_ras, *rargs)))
-            if kernel:
-                # every window cell's word read once, the payload of each
-                # stored point in the height window, both maps written once;
-                # about 30 float32 operations to place each such point
-                in_height = _k2_in_height(st, inp, params)
-                out["rasterize"]["bytes"].append(
-                    b * params.window_cells ** 2 * 8 + in_height * 4
-                    + 2 * b * n_map)
-                out["rasterize"]["flops"].append(in_height * 30)
-    result = {}
-    for k, v in out.items():
-        ms = float(np.median(v["ms"][1:]))
-        plain_ms = float(np.median(v["plain_ms"][1:]))
-        by_bytes = float(np.median(v["bytes"])) / HBM_BYTES_PER_S * 1e3
-        by_ops = float(np.median(v["flops"])) / FP32_FLOPS * 1e3
-        result[k] = {
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(by_bytes, by_ops),
+    for t, frame in enumerate(frames):
+        ops = _step_ops(params, states, frame)
+        inp = ops["current"][0]
+        st = states["current"]
+        n_pix = inp.depth.numel()
+        touched = _k1_cells(inp, params)
+        before = st.word.clone()
+        if yardstick:
+            flat = st.word.clone().view(-1)
+            words = torch.randint(0, 2 ** 62, (n_pix,), device=dev,
+                                  generator=gen)
+            idx = torch.randint(0, flat.numel(), (n_pix,), device=dev,
+                                generator=gen)
+            yard.append(cuda_ms(
+                lambda: flat.scatter_reduce_(0, idx, words, "amax")))
+            del flat
+        order = ("v1", "current") if t % 2 == 0 else ("current", "v1")
+        for d in order:
+            times["accumulate"][d].append(cuda_ms(ops[d][1]))
+        times["accumulate"]["plain"].append(
+            cuda_ms(ops["plain"][1], waits_on_card=True))
+        # each pixel's depth and label read once; the word of each cell a
+        # kept point lands in read once; word and payload written once
+        # where a new point won the cell; the lane constants, rays and
+        # drop counts
+        changed = int((st.word != before).sum())
+        del before
+        work["accumulate"]["bytes"].append(
+            n_pix * 5 + touched * 8 + changed * 12
+            + (inp.lane_acc.numel() + inp.rays_x.numel()
+               + inp.rays_y.numel()) * 4 + b * 4 * 2)
+        work["accumulate"]["flops"].append(n_pix * 40)
+        ras_ms = defaultdict(list)
+        for d in ("v1", "current", "current", "v1"):
+            ras_ms[d].append(cuda_ms(ops[d][2]))
+        ras_ms["plain"].append(cuda_ms(ops["plain"][2], waits_on_card=True))
+        for d, v in ras_ms.items():
+            times["rasterize"][d].append(float(np.mean(v)))
+        # every window cell's word read once, the payload of each stored
+        # point in the height window, both maps written once; about 30
+        # float32 operations to place each such point
+        in_height = _k2_in_height(st, inp, params)
+        work["rasterize"]["bytes"].append(
+            b * params.window_cells ** 2 * 8 + in_height * 4 + 2 * b * n_map)
+        work["rasterize"]["flops"].append(in_height * 30)
+        occ_c, sem_c = ops["current"][2]()
+        occ_1, sem_1 = ops["v1"][2]()
+        c, v1 = states["current"], states["v1"]
+        if not (torch.equal(c.word, v1.word) and torch.equal(c.aux, v1.aux)
+                and torch.equal(c.dropped, v1.dropped)
+                and torch.equal(occ_c, occ_1) and torch.equal(sem_c, sem_1)):
+            raise SystemExit(f"the current and first designs disagree at "
+                             f"step {t} of the {label}")
+    del states
+
+    # each design's kernels apart, over a replay of the walk
+    replay = {d: M.init_state(b, params.grid_cells, dev)
+              for d in ("current", "v1")}
+
+    def run():
+        for f in frames:
+            ops = _step_ops(params, replay, f)
+            for d in ("current", "v1"):
+                ops[d][1]()
+                ops[d][2]()
+
+    names = [n for d in KERNEL_NAMES.values() for v in d.values() for n in v]
+    passes = traced_kernel_ms(run, names, len(frames))
+    del replay
+
+    result = {"walk": label, "lanes": b, "steps": len(frames)}
+    for op, by in times.items():
+        ms = {d: float(np.median(v[1:])) for d, v in by.items()}
+        by_bytes = float(np.median(work[op]["bytes"])) / HBM_BYTES_PER_S * 1e3
+        by_ops = float(np.median(work[op]["flops"])) / FP32_FLOPS * 1e3
+        bound = max(by_bytes, by_ops)
+        result[op] = {
+            "ms": ms["current"], "v1_ms": ms["v1"], "plain_ms": ms["plain"],
+            "bound_ms": bound,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "yardstick_ms": (float(np.median(v["yardstick_ms"][1:]))
-                             if v["yardstick_ms"] else None),
+            "x_bound": ms["current"] / bound, "v1_x_bound": ms["v1"] / bound,
+            "speedup_vs_v1": ms["v1"] / ms["current"],
+            "pass_ms": {d: {n: passes[n] for n in KERNEL_NAMES[d][op]}
+                        for d in KERNEL_NAMES},
         }
-        print(f"  {k} at B=64 [{card}]: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {result[k]['bound_ms']:.4f} ms "
-              f"({result[k]['bound_by']})")
-    print(f"  accumulate yardstick [{card}]: one scatter_reduce_ amax of "
-          f"the frame's packed keys, no filters or payload (partial): "
-          f"{result['accumulate']['yardstick_ms']:.4f} ms")
+        r = result[op]
+        print(f"  {op}, {label} [{card}]: current {r['ms']:.4f} ms, v1 "
+              f"{r['v1_ms']:.4f} ms ({r['speedup_vs_v1']:.2f}x), plain "
+              f"{r['plain_ms']:.4f} ms, bound {bound:.4f} ms "
+              f"({r['bound_by']}; current {r['x_bound']:.1f}x, v1 "
+              f"{r['v1_x_bound']:.1f}x); kernels, profiler median: "
+              f"{r['pass_ms']}")
+    result["accumulate"]["yardstick_ms"] = (
+        float(np.median(yard[1:])) if yard else None)
+    result["rasterize"]["yardstick_ms"] = None
+    if yard:
+        print(f"  accumulate yardstick, {label} [{card}]: one "
+              f"scatter_reduce_ amax of the frame's packed keys, no filters "
+              f"or payload (partial): "
+              f"{result['accumulate']['yardstick_ms']:.4f} ms")
     return result
+
+
+def warm_up() -> None:
+    """Launch every timed kernel once at a tiny size. A kernel's first
+    launch loads its module (CUDA loads them lazily), milliseconds of host
+    time that no timed call may see."""
+    from ivlnce_tpu_torch.mapping import mapper as M
+    from ivlnce_tpu_torch.mapping.camera import CameraParameters
+    from ivlnce_tpu_torch.mapping.mapper import MapperParams
+
+    dev = torch.device("cuda")
+    params = MapperParams(
+        camera=CameraParameters(math.radians(90.0), (32, 32), 0.1),
+        map_height_meters=6.4, map_width_meters=6.4, resolution_meters=0.1,
+        grid_cells=256, window_cells=192)
+    states = {d: M.init_state(1, 256, dev) for d in ("current", "v1")}
+    ops = _step_ops(params, states, next(walk(1, 32, 1, seed=0)))
+    for d in states:
+        ops[d][1]()
+        ops[d][2]()
+    flat = torch.zeros(16, dtype=torch.int64, device=dev)
+    flat.scatter_reduce_(0, torch.zeros(4, dtype=torch.int64, device=dev),
+                         torch.ones(4, dtype=torch.int64, device=dev), "amax")
+    torch.cuda.synchronize()
+
+
+def phase_timing(card: str) -> dict:
+    """K1 and K2 at B=64 and B=3 on the noise walk (i.i.d. depths: every
+    pixel in an unrelated cell) and on the FakeSim walk (the frames the
+    evaluations render: smooth, a wall column's pixels in one cell), 12
+    steps each, 256^2 frames, G=1024."""
+    from ivlnce_tpu_torch.mapping import walks
+
+    warm_up()
+    out = {}
+    for b in (64, 3):
+        t0 = time.perf_counter()
+        fake = list(walks.fakesim_walk(b, 256, 12, seed=1))
+        print(f"  FakeSim walk at B={b} rendered in "
+              f"{time.perf_counter() - t0:.2f} s")
+        for kind, frames in (("noise", list(walk(b, 256, 12, seed=1))),
+                             ("fakesim", fake)):
+            label = f"{kind} walk B={b}"
+            out[f"{kind}_b{b}"] = time_walk(card, label, frames,
+                                            yardstick=b == 64)
+    return out
 
 
 # -- K3: the known-map load --------------------------------------------------
@@ -414,32 +667,6 @@ def _known_words(xyz, counts, origin, g, half):
     return cell, word
 
 
-def pass_ms(fn, names, reps: int) -> dict:
-    """Median device ms per call of each kernel whose name holds one of
-    ``names``, over ``reps`` calls of ``fn`` traced by ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    durs = defaultdict(list)
-    for ev in events:
-        if ev.get("cat") == "kernel":
-            for n in names:
-                if n in ev.get("name", ""):
-                    durs[n].append(ev["dur"] / 1e3)
-    if any(len(durs[n]) != reps for n in names):
-        raise SystemExit(f"traced {dict((n, len(durs[n])) for n in names)} "
-                         f"launches, expected {reps} of each")
-    return {n: float(np.median(durs[n])) for n in names}
-
-
 def phase_known_timing(card: str) -> dict:
     """K3 at B=64, 2^18 points per cloud, G=1024 over six loads of all
     lanes (median after the first): the kernel, its plain version, the
@@ -474,12 +701,13 @@ def phase_known_timing(card: str) -> dict:
     op = {"ms": S.known_load, "plain_ms": S.known_load_plain}
     for _ in range(6):
         for key, st in states.items():
-            clear = cuda_ms(lambda: M.clear_lanes(st, np.zeros(b, bool)))
+            clear = cuda_ms(lambda: M.clear_lanes(st, np.zeros(b, bool)),
+                            waits_on_card=True)
             if key == "ms":
                 times["clear_ms"].append(clear)
             times[key].append(cuda_ms(lambda: op[key](
                 st.word, st.aux, st.dropped, rows, origin_d, xyz_d, sem_d,
-                counts, params.half_res)))
+                counts, params.half_res), waits_on_card=key == "plain_ms"))
         flat = torch.full((b * g * g,), S.EMPTY_WORD, dtype=torch.int64,
                           device=dev)
         times["yardstick_ms"].append(cuda_ms(
@@ -499,8 +727,9 @@ def phase_known_timing(card: str) -> dict:
         S.known_load(st.word, st.aux, st.dropped, rows, origin_d, xyz_d,
                      sem_d, counts, params.half_res)
 
-    passes = pass_ms(clear_and_load, ("known_load_max", "known_load_commit"),
-                     reps=5)
+    passes = traced_kernel_ms(
+        lambda: [clear_and_load() for _ in range(5)],
+        ("known_load_max", "known_load_commit"), launches=5)
     valid = b * n
     nbytes = (valid * 12 + touched * 8 + changed * (1 + 12)
               + b * 4 * 5)
@@ -761,6 +990,7 @@ PATHS = {
 def phase_end_to_end(card: str, tmp: str, ckpt: str, path: str) -> dict:
     """``run_exp`` eval of one path on the card, the launch counters set
     to 0 just before and read just after."""
+    from ivlnce_tpu_torch.ops import kernels
     from ivlnce_tpu_torch.ops import scatter as S
     from ivlnce_tpu_torch.run import run_exp
 
@@ -769,6 +999,7 @@ def phase_end_to_end(card: str, tmp: str, ckpt: str, path: str) -> dict:
     opts = eval_opts(tmp, path, ckpt, extra)
     torch.cuda.reset_peak_memory_stats()
     S.launches.reset()
+    v1_before = dict(kernels.v1_launches)
     t0 = time.perf_counter()
     trainer = run_exp(config, "eval", opts, device="cuda")
     torch.cuda.synchronize()
@@ -776,6 +1007,8 @@ def phase_end_to_end(card: str, tmp: str, ckpt: str, path: str) -> dict:
     launches = {"accumulate": S.launches.accumulate,
                 "rasterize": S.launches.rasterize,
                 "known_load": S.launches.known_load}
+    if kernels.v1_launches != v1_before:
+        raise SystemExit(f"the {path} path launched a first-design kernel")
 
     with open(os.path.join(results,
                            "iterative_stats_ckpt_0_val_seen.json")) as f:
@@ -933,15 +1166,21 @@ def phase_trace(card: str, tmp: str, ckpt: str, wall_ms_per_step: float,
     if got["unmatched"]:
         raise SystemExit(f"{got['unmatched']} device events without a "
                          "launch record")
+    current = [n for v in KERNEL_NAMES["current"].values() for n in v]
+    first = [n for v in KERNEL_NAMES["v1"].values() for n in v]
     mapper_kernels = {
         short: {where: us / 1e3 / TRACE_STEPS for where, us in v.items()}
-        for short in ("accumulate_max", "accumulate_commit",
-                      "rasterize_kernel")
+        for short in current
         for name, v in got["by_kernel_us"].items() if short in name
     }
+    if set(mapper_kernels) != set(current):
+        raise SystemExit(f"mapper kernels missing from the trace: "
+                         f"{sorted(set(current) - set(mapper_kernels))}")
     if any(set(v) != {"mapper"} for v in mapper_kernels.values()):
         raise SystemExit(f"mapper kernels outside the mapper range: "
                          f"{mapper_kernels}")
+    if any(n in name for n in first for name in got["by_kernel_us"]):
+        raise SystemExit("a first-design mapper kernel ran in the trace")
     per_step = {k: us / 1e3 / TRACE_STEPS
                 for k, us in got["by_range_us"].items()}
     device_ms = got["device_us"] / 1e3 / TRACE_STEPS
@@ -996,14 +1235,26 @@ def main() -> int:
     kernels.library()
     print(f"  built in {time.perf_counter() - t0:.2f} s")
     print("  " + kernels.build_log.strip().replace("\n", "\n  "))
+    print("  registers and shared memory of the current K1 and K2 kernels:")
+    for kernel, usage in ptxas_usage(kernels.build_log).items():
+        print(f"    {kernel}: {usage}")
+    clusters = ctypes.c_int(0)
+    err = kernels.library().mapper_rasterize_resident_clusters(
+        64, 64, ctypes.byref(clusters))
+    kernels.check(err, "mapper_rasterize_resident_clusters")
+    print(f"  rasterize_cluster: {clusters.value} clusters of 8 blocks "
+          f"resident at once (64 x 64 map), {8 * clusters.value} blocks")
 
-    print("phase 3: kernels vs plain versions (B=16, 256^2, G=1024; "
-          "K3 2^18 points per cloud)")
-    worst = phase_kernels_vs_plain()
+    print("phase 3: kernels vs plain versions (256^2, G=1024; K3 2^18 "
+          "points per cloud)")
+    worst = phase_kernels_vs_plain_walks()
     worst["known_load"] = phase_known_vs_plain()
 
-    print("phase 4: timing (B=64)")
-    timing = phase_timing(card)
+    print("phase 4: timing (B=64 and B=3, noise and FakeSim walks; K3 at "
+          "B=64)")
+    walks_timed = phase_timing(card)
+    timing = {k: walks_timed["fakesim_b64"][k]
+              for k in ("accumulate", "rasterize")}
     timing["known_load"] = phase_known_timing(card)
 
     print("phase 5: full-width steps, card vs CPU")
@@ -1072,8 +1323,16 @@ def main() -> int:
         }
         for k in ("accumulate", "rasterize", "known_load")
     ]}
+    for k in ("accumulate", "rasterize"):
+        entry = next(e for e in line["kernels"] if e["name"] == k)
+        entry["walk"] = "fakesim walk B=64"
+        entry["v1_ms"] = timing[k]["v1_ms"]
+        entry["walks"] = {w: {f: v[k][f] for f in ("ms", "v1_ms", "plain_ms",
+                                                   "bound_ms", "pass_ms")}
+                          for w, v in walks_timed.items()}
     print(json.dumps({"end_to_end": e2e, "trace": traces,
                       "reference": reference,
+                      "kernel_walks": walks_timed,
                       "known_load_timing": timing["known_load"],
                       "seconds": time.perf_counter() - t_start}))
     print(card)

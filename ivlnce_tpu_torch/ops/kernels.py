@@ -17,6 +17,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 _ROOT = Path(__file__).resolve().parents[2]
 _SRC = _ROOT / "ivlnce_tpu_torch" / "csrc" / "mapper_kernels.cu"
 BUILD_DIR = _ROOT / "build" / "kernels"
@@ -44,11 +46,14 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile the mapper kernels if this source has no library yet."""
+    """Compile the mapper kernels if this source has no library yet. The
+    compiler's output (``build_log``) is kept beside the library."""
     global build_log
     digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:12]
     out = BUILD_DIR / f"libmapper_kernels-{digest}.so"
+    log = out.with_suffix(".log")
     if out.exists():
+        build_log = log.read_text() if log.exists() else ""
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -62,6 +67,7 @@ def build() -> Path:
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed on {_SRC}:\n{build_log}")
+    log.write_text(build_log)
     os.replace(tmp, out)
     return out
 
@@ -73,10 +79,18 @@ def library() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(str(build()))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mapper_accumulate.argtypes = [p] * 9 + [i] * 4 + [f] * 5 + [p]
+    lib.mapper_accumulate_scratch_bytes.argtypes = [i] * 3
+    lib.mapper_accumulate_scratch_bytes.restype = ctypes.c_longlong
+    lib.mapper_accumulate.argtypes = [p] * 10 + [i] * 4 + [f] * 5 + [p]
     lib.mapper_accumulate.restype = i
-    lib.mapper_rasterize.argtypes = [p] * 7 + [i] * 5 + [f] * 5 + [p]
-    lib.mapper_rasterize.restype = i
+    lib.mapper_accumulate_v1.argtypes = [p] * 9 + [i] * 4 + [f] * 5 + [p]
+    lib.mapper_accumulate_v1.restype = i
+    for name in ("mapper_rasterize", "mapper_rasterize_v1"):
+        getattr(lib, name).argtypes = [p] * 7 + [i] * 5 + [f] * 5 + [p]
+        getattr(lib, name).restype = i
+    lib.mapper_rasterize_resident_clusters.argtypes = [
+        i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.mapper_rasterize_resident_clusters.restype = i
     lib.mapper_known_load.argtypes = [p] * 8 + [i] * 3 + [f] * 2 + [p]
     lib.mapper_known_load.restype = i
     lib.mapper_error_string.argtypes = [i]
@@ -90,3 +104,48 @@ def check(err: int, name: str) -> None:
     if err != 0:
         msg = _lib.mapper_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+
+
+# -- the first designs of K1 and K2, kept to time the current ones against --
+# Only measurement code calls these; the wrappers in ops/scatter.py launch
+# the current designs. ``v1_launches`` counts their launches, so a run can
+# show that its main path never reached them.
+v1_launches = {"accumulate": 0, "rasterize": 0}
+
+
+def _cuda_only(t: torch.Tensor, name: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: a kernel launch needs CUDA tensors, got "
+                         f"{t.device}")
+
+
+def accumulate_v1(word, aux, dropped, depth, semantics, lane_acc, origin,
+                  rays_x, rays_y, depth_min: float, depth_max: float,
+                  depth_scale: float, half_res: float) -> None:
+    """K1's first design (one global atomic per pixel, two passes over
+    the frame) on the same arguments as ``ops.scatter.accumulate``."""
+    from ivlnce_tpu_torch.ops import scatter as S
+
+    _cuda_only(depth, "accumulate_v1")
+    pointers, sizes, floats = S.accumulate_args(
+        word, aux, dropped, depth, semantics, lane_acc, origin, rays_x,
+        rays_y, depth_min, depth_max, depth_scale, half_res)
+    err = library().mapper_accumulate_v1(*pointers, *sizes, *floats,
+                                         S.stream_arg(depth.device))
+    v1_launches["accumulate"] += 1
+    check(err, "mapper_accumulate_v1")
+
+
+def rasterize_v1(word, aux, start, origin, lane_ras, window: int, dims,
+                 half_res: float):
+    """K2's first design (one block per lane) on the same arguments as
+    ``ops.scatter.rasterize``."""
+    from ivlnce_tpu_torch.ops import scatter as S
+
+    _cuda_only(word, "rasterize_v1")
+    occupancy, semantic, c_args = S.rasterize_args(
+        word, aux, start, origin, lane_ras, window, dims, half_res)
+    err = library().mapper_rasterize_v1(*c_args, S.stream_arg(word.device))
+    v1_launches["rasterize"] += 1
+    check(err, "mapper_rasterize_v1")
+    return occupancy, semantic

@@ -359,16 +359,12 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _stream(device: torch.device) -> ctypes.c_void_p:
+def stream_arg(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def accumulate(
-    word, aux, dropped, depth, semantics, lane_acc, origin, rays_x, rays_y,
-    depth_min: float, depth_max: float, depth_scale: float, half_res: float,
-) -> None:
-    """K1: merge one depth frame per lane into the world grid, in place
-    (see ``accumulate_plain`` for the semantics)."""
+def _check_accumulate(word, aux, dropped, depth, semantics, lane_acc,
+                      origin, rays_x, rays_y) -> None:
     b, h, w = depth.shape
     g = word.shape[1]
     dev = depth.device
@@ -381,34 +377,57 @@ def accumulate(
     _check(origin, "origin", torch.int32, (b, 2), dev)
     _check(rays_x, "rays_x", torch.float32, (w,), dev)
     _check(rays_y, "rays_y", torch.float32, (h,), dev)
-    args = (depth_min, depth_max, depth_scale, half_res)
+
+
+def accumulate_args(
+    word, aux, dropped, depth, semantics, lane_acc, origin, rays_x, rays_y,
+    depth_min: float, depth_max: float, depth_scale: float, half_res: float,
+) -> tuple:
+    """K1's arguments checked, as the C arguments of a launch in three
+    parts: nine pointers; B, H, W, G; five floats. Each entry point takes
+    its own arguments between and after them."""
+    tensors = (word, aux, dropped, depth, semantics, lane_acc, origin,
+               rays_x, rays_y)
+    _check_accumulate(*tensors)
+    f = ctypes.c_float
+    return (
+        tuple(_ptr(t) for t in tensors),
+        (*depth.shape, word.shape[1]),
+        (f(depth_min), f(depth_max), f(depth_scale), f(half_res),
+         f(G.f32_reciprocal(half_res))),
+    )
+
+
+def accumulate(
+    word, aux, dropped, depth, semantics, lane_acc, origin, rays_x, rays_y,
+    depth_min: float, depth_max: float, depth_scale: float, half_res: float,
+) -> None:
+    """K1: merge one depth frame per lane into the world grid, in place
+    (see ``accumulate_plain`` for the semantics)."""
+    tensors = (word, aux, dropped, depth, semantics, lane_acc, origin,
+               rays_x, rays_y)
+    consts = (depth_min, depth_max, depth_scale, half_res)
+    dev = depth.device
     if dev.type == "cpu":
-        accumulate_plain(word, aux, dropped, depth, semantics, lane_acc,
-                         origin, rays_x, rays_y, *args)
+        _check_accumulate(*tensors)
+        accumulate_plain(*tensors, *consts)
         return
     if dev.type != "cuda":
         raise ValueError(f"accumulate: unsupported device {dev}")
     from ivlnce_tpu_torch.ops import kernels
 
+    pointers, sizes, floats = accumulate_args(*tensors, *consts)
     lib = kernels.library()
-    f = ctypes.c_float
-    err = lib.mapper_accumulate(
-        _ptr(word), _ptr(aux), _ptr(dropped), _ptr(depth), _ptr(semantics),
-        _ptr(lane_acc), _ptr(origin), _ptr(rays_x), _ptr(rays_y),
-        b, h, w, g,
-        f(depth_min), f(depth_max), f(depth_scale), f(half_res),
-        f(G.f32_reciprocal(half_res)),
-        _stream(dev),
-    )
+    # the candidates' warp ballots between the kernel's two passes
+    scratch = torch.empty(lib.mapper_accumulate_scratch_bytes(*sizes[:3]),
+                          dtype=torch.uint8, device=dev)
+    err = lib.mapper_accumulate(*pointers, _ptr(scratch), *sizes, *floats,
+                                stream_arg(dev))
     launches.accumulate += 1
     kernels.check(err, "mapper_accumulate")
 
 
-def rasterize(
-    word, aux, start, origin, lane_ras, window: int, dims: G.MapDims,
-    half_res: float,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2: egocentric occupancy and semantic maps (see ``rasterize_plain``)."""
+def _check_rasterize(word, aux, start, origin, lane_ras, window: int) -> None:
     b, g = word.shape[0], word.shape[1]
     dev = word.device
     _check(word, "word", torch.int64, (b, g, g), dev)
@@ -418,19 +437,21 @@ def rasterize(
     _check(lane_ras, "lane_ras", torch.float32, (b, RAS_LANE_COLS), dev)
     if not 0 < window <= g or window * window > MAX_WINDOW_CELLS:
         raise ValueError(f"rasterize: window {window} for grid {g}")
-    if dev.type == "cpu":
-        return rasterize_plain(word, aux, start, origin, lane_ras, window,
-                               dims, half_res)
-    if dev.type != "cuda":
-        raise ValueError(f"rasterize: unsupported device {dev}")
-    from ivlnce_tpu_torch.ops import kernels
 
-    lib = kernels.library()
+
+def rasterize_args(
+    word, aux, start, origin, lane_ras, window: int, dims: G.MapDims,
+    half_res: float,
+) -> tuple:
+    """K2's arguments checked; the two maps to fill (empty, on the grid's
+    device) and the C arguments of a launch up to the stream."""
+    _check_rasterize(word, aux, start, origin, lane_ras, window)
+    b, g = word.shape[0], word.shape[1]
     shape = (b, dims.num_rows, dims.num_cols)
-    occupancy = torch.empty(shape, dtype=torch.uint8, device=dev)
-    semantic = torch.empty(shape, dtype=torch.uint8, device=dev)
+    occupancy = torch.empty(shape, dtype=torch.uint8, device=word.device)
+    semantic = torch.empty(shape, dtype=torch.uint8, device=word.device)
     f = ctypes.c_float
-    err = lib.mapper_rasterize(
+    c_args = (
         _ptr(word), _ptr(aux), _ptr(start), _ptr(origin), _ptr(lane_ras),
         _ptr(occupancy), _ptr(semantic),
         b, g, window, dims.num_rows, dims.num_cols,
@@ -438,8 +459,27 @@ def rasterize(
         f(np.float32(dims.height_meters / 2)),
         f(np.float32(dims.width_meters / 2)),
         f(G.f32_reciprocal(dims.resolution_meters)),
-        _stream(dev),
     )
+    return occupancy, semantic, c_args
+
+
+def rasterize(
+    word, aux, start, origin, lane_ras, window: int, dims: G.MapDims,
+    half_res: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2: egocentric occupancy and semantic maps (see ``rasterize_plain``)."""
+    dev = word.device
+    if dev.type == "cpu":
+        _check_rasterize(word, aux, start, origin, lane_ras, window)
+        return rasterize_plain(word, aux, start, origin, lane_ras, window,
+                               dims, half_res)
+    if dev.type != "cuda":
+        raise ValueError(f"rasterize: unsupported device {dev}")
+    from ivlnce_tpu_torch.ops import kernels
+
+    occupancy, semantic, c_args = rasterize_args(
+        word, aux, start, origin, lane_ras, window, dims, half_res)
+    err = kernels.library().mapper_rasterize(*c_args, stream_arg(dev))
     launches.rasterize += 1
     kernels.check(err, "mapper_rasterize")
     return occupancy, semantic
@@ -475,7 +515,7 @@ def known_load(
     err = lib.mapper_known_load(
         _ptr(word), _ptr(aux), _ptr(dropped), _ptr(rows), _ptr(origin),
         _ptr(xyz), _ptr(sem), _ptr(counts), l, n, g,
-        f(half_res), f(G.f32_reciprocal(half_res)), _stream(dev),
+        f(half_res), f(G.f32_reciprocal(half_res)), stream_arg(dev),
     )
     launches.known_load += 1
     kernels.check(err, "mapper_known_load")

@@ -163,6 +163,22 @@ def test_wrappers_check_their_arguments(rng):
                     inp.lane_ras, 2048, params.map_dims, params.half_res)
 
 
+def test_first_design_launchers_take_no_cpu_tensors(rng):
+    """The first designs of K1 and K2 have no plain path of their own: on
+    CPU tensors they raise before anything is built."""
+    params, state, inp, consts = _small_step(rng)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        kernels.accumulate_v1(state.word, state.aux, state.dropped,
+                              inp.depth, inp.semantics, inp.lane_acc,
+                              inp.origin, inp.rays_x, inp.rays_y, *consts)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        kernels.rasterize_v1(state.word, state.aux, inp.start, inp.origin,
+                             inp.lane_ras, params.window_cells,
+                             params.map_dims, params.half_res)
+    assert kernels._lib is None
+    assert kernels.v1_launches == {"accumulate": 0, "rasterize": 0}
+
+
 def test_kernel_build_needs_nvcc_and_happens_only_when_called():
     assert kernels._lib is None  # nothing was built at import
     if shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc"):

@@ -131,3 +131,104 @@ def test_known_load_equals_plain_version(card):
         assert torch.equal(kern.dropped, plain.dropped)
     assert int(kern.dropped.sum()) > 0
     assert S.launches.known_load == before + 2
+
+
+def _design(name):
+    """The K1 and K2 launchers of a design: the wrappers' current one, or
+    the first (one global atomic per pixel, one block per lane)."""
+    from ivlnce_tpu_torch.ops import kernels
+
+    if name == "current":
+        return S.accumulate, S.rasterize
+    return kernels.accumulate_v1, kernels.rasterize_v1
+
+
+def _equal_plain_over(card, params, batch, frames, design):
+    """Each step of ``frames`` through a design's K1 and K2 and through
+    the plain versions: grids, drop counts and maps exactly equal. Returns
+    the drop counts."""
+    acc, ras = _design(design)
+    kern = M.init_state(batch, params.grid_cells, card)
+    plain = M.init_state(batch, params.grid_cells, card)
+    consts = (M.FRAME_DEPTH_MIN, M.FRAME_DEPTH_MAX, M.DEPTH_SCALE_METERS,
+              params.half_res)
+    rargs = (params.window_cells, params.map_dims, params.half_res)
+    for t, (depth, sem, pose, orient, masks) in enumerate(frames):
+        d = torch.from_numpy(depth).to(card)
+        s = torch.from_numpy(sem).to(card)
+        ik = M.step_inputs(params, kern, d, s, pose, orient, None, masks)
+        ip = M.step_inputs(params, plain, d, s, pose, orient, None, masks)
+        acc(kern.word, kern.aux, kern.dropped, ik.depth, ik.semantics,
+            ik.lane_acc, ik.origin, ik.rays_x, ik.rays_y, *consts)
+        S.accumulate_plain(plain.word, plain.aux, plain.dropped, ip.depth,
+                           ip.semantics, ip.lane_acc, ip.origin, ip.rays_x,
+                           ip.rays_y, *consts)
+        occ_k, sem_k = ras(kern.word, kern.aux, ik.start, ik.origin,
+                           ik.lane_ras, *rargs)
+        occ_p, sem_p = S.rasterize_plain(plain.word, plain.aux, ip.start,
+                                         ip.origin, ip.lane_ras, *rargs)
+        torch.cuda.synchronize()
+        assert torch.equal(kern.word, plain.word), t
+        assert torch.equal(kern.aux, plain.aux), t
+        assert torch.equal(kern.dropped, plain.dropped), t
+        assert torch.equal(occ_k, occ_p) and torch.equal(sem_k, sem_p), t
+    return kern.dropped.cpu()
+
+
+# batch, frame side (40 does not divide into the accumulate's 32^2
+# tiles), grid, window (100 does not divide into the raster's 8-block
+# cluster), lanes that see nothing, lane 0's step off the grid
+TIE_CASES = [
+    (1, 64, 256, 100, (), 2.0),
+    (3, 40, 256, 100, (2,), 2.0),
+    (3, 256, 1024, 192, (1,), 6.0),
+]
+
+
+@pytest.mark.parametrize("design", ["current", "v1"])
+@pytest.mark.parametrize("batch,hw,grid,window,empty,edge", TIE_CASES)
+def test_kernels_equal_plain_versions_on_tie_frames(card, design, batch, hw,
+                                                    grid, window, empty,
+                                                    edge):
+    from ivlnce_tpu_torch.mapping import walks
+
+    params = M.MapperParams(CameraParameters(math.radians(90.0), (hw, hw),
+                                             0.1), 6.4, 6.4, 0.1,
+                            grid_cells=grid, window_cells=window)
+    frames = walks.tie_walk(batch, hw, 10, seed=batch, edge_step=edge,
+                            empty_lanes=empty)
+    dropped = _equal_plain_over(card, params, batch, frames, design)
+    assert int(dropped[0]) > 0
+
+
+@pytest.mark.parametrize("design", ["current", "v1"])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_kernels_equal_plain_versions_on_fakesim_frames(card, design,
+                                                        batch):
+    from ivlnce_tpu_torch.mapping import walks
+
+    params = M.MapperParams(CameraParameters(math.radians(90.0), (256, 256),
+                                             0.1), 6.4, 6.4, 0.1,
+                            grid_cells=1024, window_cells=192)
+    frames = walks.fakesim_walk(batch, 256, 8, seed=batch)
+    _equal_plain_over(card, params, batch, frames, design)
+
+
+
+def test_chip_smoke_times_the_card_not_the_host(card):
+    """``chip_smoke.cuda_ms`` times the card's work only: a call that
+    spends 1 ms on the host before launching a small kernel times well
+    under 1 ms, while the same call timed on an idle card (the spin left
+    out) counts the host's millisecond."""
+    import time
+
+    import chip_smoke
+
+    def slow_enqueue():
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 1e-3:
+            pass
+        torch.ones(1024, device=card).add_(1)
+
+    assert chip_smoke.cuda_ms(slow_enqueue) < 0.5
+    assert chip_smoke.cuda_ms(slow_enqueue, waits_on_card=True) >= 1.0
