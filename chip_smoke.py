@@ -5,18 +5,23 @@
 Phases (any failure ends the run with a nonzero exit):
 1. the card's name and power limit;
 2. build the CUDA kernels from ivlnce_tpu_torch/csrc, and show the
-   registers and shared memory ``-Xptxas -v`` gives the current K1 and K2
+   registers and shared memory ``-Xptxas -v`` gives the K1, K2 and K3
    kernels;
 3. each kernel against its plain PyTorch version on the card, exactly:
-   K1 and K2 (current design) on a seeded noise walk and a FakeSim walk
-   at main-path shapes (B=16, 256x256 frames, 1024^2 grid, 192^2 window,
-   64x64 map, 12 steps) and on tie frames (B=3 at those shapes; B=1 at a
-   100-cell window of a 256^2 grid), K3 on two loads of seeded clouds
-   (B=16, 2^18 points, 1024^2 grid, the second into some lanes only);
+   K1 and K2 on a seeded noise walk and a FakeSim walk at main-path
+   shapes (B=16, 256x256 frames, 1024^2 grid, 192^2 window, 64x64 map,
+   12 steps) and on tie frames (B=3 at those shapes; B=1 at a 100-cell
+   window of a 256^2 grid); K3 on two loads of seeded clouds (B=16, 2^18
+   points, 1024^2 grid, the second into some lanes only), on the edge
+   cases of its tiled design (``mapping/clouds.py``) and on the fake
+   val_seen clouds at L=3 and L=1, each load into rows a load filled;
 4. K1 and K2 at B=64 and B=3 on a noise walk and a FakeSim walk: the
-   current design and the first (kept under ``*_v1`` entry points) in
-   turns, the plain versions and the bound (CUDA events), and
-   each design's kernels apart (``torch.profiler``); K3 at B=64;
+   kernels, the plain versions and the bound (CUDA events), and each
+   kernel apart (``torch.profiler``); K3's whole load at B=64 (2^18
+   points per cloud) and at L=3 and L=1 (the val_seen clouds) against
+   the old load (the rows' clear, then K3's first design, kept under
+   ``mapper_known_load_v1``) in turns, each kernel of both apart, the
+   peak memory, and two bounds;
 5. full-width steps on the card against the same steps on the CPU (plain
    versions): a mapper + MapCMA step (maps equal, logits and RNN states
    close), a known-map preload and three steps (maps equal), and a RedNet
@@ -25,7 +30,7 @@ Phases (any failure ends the run with a nonzero exit):
    (``ivlnce_tpu_torch.run.run_exp``) at full width
    (configs/fake/map_cma_eval_iterative.yaml, seeded random weights),
    with the kernels' launch counters set to 0 before and read after (and
-   the first designs' counters unchanged);
+   K3's first design's counter unchanged);
 7. the same evaluation again with a window of policy steps traced by
    ``torch.profiler``: the device time of each named range of the step
    (mapper, semantics, encoders, GRU + attention, instruction encoder)
@@ -78,8 +83,8 @@ def card_line() -> str:
 
 def ptxas_usage(log: str) -> dict:
     """``-Xptxas -v``'s resource lines (registers, shared memory, spills)
-    of the current K1 and K2 kernels, by kernel name."""
-    wanted = [n for v in KERNEL_NAMES["current"].values() for n in v]
+    of the current K1, K2 and K3 kernels, by kernel name."""
+    wanted = [n for v in KERNEL_NAMES.values() for n in v]
     out, entry = {}, None
     for raw in log.splitlines():
         line = raw.strip()
@@ -322,27 +327,25 @@ def _k2_in_height(state, inp, params) -> int:
     return n
 
 
-# K1 and K2 launchers by design: the wrappers' current design, the first
-# design kept for comparison, and the plain versions
+# K1 and K2 launchers: the wrappers (kernels on CUDA tensors) and the
+# plain versions
 def _designs() -> dict:
-    from ivlnce_tpu_torch.ops import kernels
     from ivlnce_tpu_torch.ops import scatter as S
 
     return {
         "current": (S.accumulate, S.rasterize),
-        "v1": (kernels.accumulate_v1, kernels.rasterize_v1),
         "plain": (S.accumulate_plain, S.rasterize_plain),
     }
 
 
-# the kernels each design launches, by op
+# the CUDA kernels each op launches
 KERNEL_NAMES = {
-    "current": {"accumulate": ("accumulate_tile_max",
-                               "accumulate_tile_commit"),
-                "rasterize": ("rasterize_cluster",)},
-    "v1": {"accumulate": ("accumulate_max", "accumulate_commit"),
-           "rasterize": ("rasterize_kernel",)},
+    "accumulate": ("accumulate_tile_max", "accumulate_tile_commit"),
+    "rasterize": ("rasterize_cluster",),
+    "known_load": ("known_bin_scatter", "known_tile_load"),
 }
+# K3's first design, kept for phase 4's comparison
+KNOWN_V1_NAMES = ("known_load_max", "known_load_commit")
 
 
 def _step_ops(params, states, frame):
@@ -375,10 +378,9 @@ def _step_ops(params, states, frame):
     return ops
 
 
-def traced_kernel_ms(fn, names, launches: int) -> dict:
-    """Median device ms per launch of each kernel whose name holds one of
-    ``names``, over one call of ``fn`` traced by ``torch.profiler``, which
-    must launch each ``launches`` times."""
+def trace_kernels(fn) -> dict:
+    """Device ms of each kernel launch of one call of ``fn`` traced by
+    ``torch.profiler``, by kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -392,9 +394,19 @@ def traced_kernel_ms(fn, names, launches: int) -> dict:
     durs = defaultdict(list)
     for ev in events:
         if ev.get("cat") == "kernel":
-            for n in names:
-                if n in ev.get("name", ""):
-                    durs[n].append(ev["dur"] / 1e3)
+            durs[ev.get("name", "")].append(ev["dur"] / 1e3)
+    return durs
+
+
+def traced_kernel_ms(fn, names, launches: int) -> dict:
+    """Median device ms per launch of each kernel whose name holds one of
+    ``names``, over one call of ``fn`` traced by ``torch.profiler``, which
+    must launch each ``launches`` times."""
+    durs = defaultdict(list)
+    for name, v in trace_kernels(fn).items():
+        for n in names:
+            if n in name:
+                durs[n] += v
     if any(len(durs[n]) != launches for n in names):
         raise SystemExit(f"traced {dict((n, len(durs[n])) for n in names)} "
                          f"launches, expected {launches} of each")
@@ -403,27 +415,25 @@ def traced_kernel_ms(fn, names, launches: int) -> dict:
 
 def time_walk(card: str, label: str, frames: list, yardstick: bool) -> dict:
     """K1 and K2 over a walk (median of the steps after the first): the
-    current design and the first in turns (K1: v1 then current at even
-    steps, current then v1 at odd ones, each on its own state; K2: v1,
-    current, current, v1 at every step), the plain versions, the least
+    kernels (K2 twice per step, the mean), the plain versions, the least
     time the card could take for the same work (bytes over 3.35 TB/s or
     float32 operations over 67 TFLOP/s, the larger), for K1 at B=64 a
     partial yardstick (one ``scatter_reduce_`` amax of the frame's packed
-    keys, without filters or payload), and each design's kernels timed
-    apart by ``torch.profiler`` over a replay of the walk. The two designs'
-    grids and maps must be equal at every step."""
+    keys, without filters or payload), and each kernel timed apart by
+    ``torch.profiler`` over a replay of the walk. The kernels' grids and
+    maps must equal the plain versions' at every step."""
     from ivlnce_tpu_torch.mapping import mapper as M
 
     params = mapper_params()
     dev = torch.device("cuda")
     b = frames[0][0].shape[0]
     n_map = params.map_dims.num_rows * params.map_dims.num_cols
-    times = {op: {d: [] for d in ("current", "v1", "plain")}
+    times = {op: {d: [] for d in ("current", "plain")}
              for op in ("accumulate", "rasterize")}
     work = {op: {"bytes": [], "flops": []} for op in times}
     yard = []
     states = {d: M.init_state(b, params.grid_cells, dev)
-              for d in ("current", "v1", "plain")}
+              for d in ("current", "plain")}
     gen = torch.Generator(device=dev).manual_seed(SEED)
     for t, frame in enumerate(frames):
         ops = _step_ops(params, states, frame)
@@ -441,9 +451,7 @@ def time_walk(card: str, label: str, frames: list, yardstick: bool) -> dict:
             yard.append(cuda_ms(
                 lambda: flat.scatter_reduce_(0, idx, words, "amax")))
             del flat
-        order = ("v1", "current") if t % 2 == 0 else ("current", "v1")
-        for d in order:
-            times["accumulate"][d].append(cuda_ms(ops[d][1]))
+        times["accumulate"]["current"].append(cuda_ms(ops["current"][1]))
         times["accumulate"]["plain"].append(
             cuda_ms(ops["plain"][1], waits_on_card=True))
         # each pixel's depth and label read once; the word of each cell a
@@ -457,12 +465,10 @@ def time_walk(card: str, label: str, frames: list, yardstick: bool) -> dict:
             + (inp.lane_acc.numel() + inp.rays_x.numel()
                + inp.rays_y.numel()) * 4 + b * 4 * 2)
         work["accumulate"]["flops"].append(n_pix * 40)
-        ras_ms = defaultdict(list)
-        for d in ("v1", "current", "current", "v1"):
-            ras_ms[d].append(cuda_ms(ops[d][2]))
-        ras_ms["plain"].append(cuda_ms(ops["plain"][2], waits_on_card=True))
-        for d, v in ras_ms.items():
-            times["rasterize"][d].append(float(np.mean(v)))
+        times["rasterize"]["current"].append(float(np.mean(
+            [cuda_ms(ops["current"][2]) for _ in range(2)])))
+        times["rasterize"]["plain"].append(
+            cuda_ms(ops["plain"][2], waits_on_card=True))
         # every window cell's word read once, the payload of each stored
         # point in the height window, both maps written once; about 30
         # float32 operations to place each such point
@@ -471,27 +477,25 @@ def time_walk(card: str, label: str, frames: list, yardstick: bool) -> dict:
             b * params.window_cells ** 2 * 8 + in_height * 4 + 2 * b * n_map)
         work["rasterize"]["flops"].append(in_height * 30)
         occ_c, sem_c = ops["current"][2]()
-        occ_1, sem_1 = ops["v1"][2]()
-        c, v1 = states["current"], states["v1"]
-        if not (torch.equal(c.word, v1.word) and torch.equal(c.aux, v1.aux)
-                and torch.equal(c.dropped, v1.dropped)
-                and torch.equal(occ_c, occ_1) and torch.equal(sem_c, sem_1)):
-            raise SystemExit(f"the current and first designs disagree at "
-                             f"step {t} of the {label}")
+        occ_p, sem_p = ops["plain"][2]()
+        c, p = states["current"], states["plain"]
+        if not (torch.equal(c.word, p.word) and torch.equal(c.aux, p.aux)
+                and torch.equal(c.dropped, p.dropped)
+                and torch.equal(occ_c, occ_p) and torch.equal(sem_c, sem_p)):
+            raise SystemExit(f"the kernels and the plain versions disagree "
+                             f"at step {t} of the {label}")
     del states
 
-    # each design's kernels apart, over a replay of the walk
-    replay = {d: M.init_state(b, params.grid_cells, dev)
-              for d in ("current", "v1")}
+    # each kernel apart, over a replay of the walk
+    replay = {"current": M.init_state(b, params.grid_cells, dev)}
 
     def run():
         for f in frames:
             ops = _step_ops(params, replay, f)
-            for d in ("current", "v1"):
-                ops[d][1]()
-                ops[d][2]()
+            ops["current"][1]()
+            ops["current"][2]()
 
-    names = [n for d in KERNEL_NAMES.values() for v in d.values() for n in v]
+    names = KERNEL_NAMES["accumulate"] + KERNEL_NAMES["rasterize"]
     passes = traced_kernel_ms(run, names, len(frames))
     del replay
 
@@ -502,21 +506,16 @@ def time_walk(card: str, label: str, frames: list, yardstick: bool) -> dict:
         by_ops = float(np.median(work[op]["flops"])) / FP32_FLOPS * 1e3
         bound = max(by_bytes, by_ops)
         result[op] = {
-            "ms": ms["current"], "v1_ms": ms["v1"], "plain_ms": ms["plain"],
-            "bound_ms": bound,
+            "ms": ms["current"], "plain_ms": ms["plain"], "bound_ms": bound,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "x_bound": ms["current"] / bound, "v1_x_bound": ms["v1"] / bound,
-            "speedup_vs_v1": ms["v1"] / ms["current"],
-            "pass_ms": {d: {n: passes[n] for n in KERNEL_NAMES[d][op]}
-                        for d in KERNEL_NAMES},
+            "x_bound": ms["current"] / bound,
+            "pass_ms": {n: passes[n] for n in KERNEL_NAMES[op]},
         }
         r = result[op]
-        print(f"  {op}, {label} [{card}]: current {r['ms']:.4f} ms, v1 "
-              f"{r['v1_ms']:.4f} ms ({r['speedup_vs_v1']:.2f}x), plain "
+        print(f"  {op}, {label} [{card}]: {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {bound:.4f} ms "
-              f"({r['bound_by']}; current {r['x_bound']:.1f}x, v1 "
-              f"{r['v1_x_bound']:.1f}x); kernels, profiler median: "
-              f"{r['pass_ms']}")
+              f"({r['bound_by']}; {r['x_bound']:.1f}x); kernels, profiler "
+              f"median: {r['pass_ms']}")
     result["accumulate"]["yardstick_ms"] = (
         float(np.median(yard[1:])) if yard else None)
     result["rasterize"]["yardstick_ms"] = None
@@ -532,6 +531,7 @@ def warm_up() -> None:
     """Launch every timed kernel once at a tiny size. A kernel's first
     launch loads its module (CUDA loads them lazily), milliseconds of host
     time that no timed call may see."""
+    from ivlnce_tpu_torch.mapping import clouds
     from ivlnce_tpu_torch.mapping import mapper as M
     from ivlnce_tpu_torch.mapping.camera import CameraParameters
     from ivlnce_tpu_torch.mapping.mapper import MapperParams
@@ -541,11 +541,15 @@ def warm_up() -> None:
         camera=CameraParameters(math.radians(90.0), (32, 32), 0.1),
         map_height_meters=6.4, map_width_meters=6.4, resolution_meters=0.1,
         grid_cells=256, window_cells=192)
-    states = {d: M.init_state(1, 256, dev) for d in ("current", "v1")}
+    states = {"current": M.init_state(1, 256, dev)}
     ops = _step_ops(params, states, next(walk(1, 32, 1, seed=0)))
-    for d in states:
-        ops[d][1]()
-        ops[d][2]()
+    ops["current"][1]()
+    ops["current"][2]()
+    load = next(clouds.edge_cases()).loads[0]
+    args = _known_args(load, known_params(128), dev)
+    for old in (False, True):
+        st = M.init_state(2, 128, dev)
+        _known_op(st, *args, 0.05, old=old)()
     flat = torch.zeros(16, dtype=torch.int64, device=dev)
     flat.scatter_reduce_(0, torch.zeros(4, dtype=torch.int64, device=dev),
                          torch.ones(4, dtype=torch.int64, device=dev), "amax")
@@ -593,6 +597,12 @@ def known_clouds(batch: int, n: int, seed: int):
     return xyz, sem
 
 
+def known_params(grid: int):
+    """``mapper_params()`` with a G x G grid (the window no wider)."""
+    return mapper_params()._replace(grid_cells=grid,
+                                    window_cells=min(192, grid))
+
+
 def load_known(params, state, lanes, xyz, sem, counts, centers, plain):
     """``mapping.mapper.load_lanes`` with the kernel, or the same host
     steps with K3's plain version."""
@@ -607,49 +617,79 @@ def load_known(params, state, lanes, xyz, sem, counts, centers, plain):
     return state
 
 
-def phase_known_vs_plain() -> float:
-    """K3 against its plain version over two loads at B=16, 2^18 points
-    per cloud, G=1024: all lanes, then a seeded subset; counts vary per
-    lane. The largest absolute difference over word, aux and dropped."""
+def check_known_loads(label, params, batch, loads):
+    """Each load through ``load_lanes`` (K3) and through the same host
+    steps with K3's plain version on the card, into ``batch``-row states:
+    the largest absolute difference over word, aux and dropped after each
+    load (it must be 0), and the kernel's state."""
     from ivlnce_tpu_torch.mapping import mapper as M
     from ivlnce_tpu_torch.ops import scatter as S
 
-    params = mapper_params()
     dev = torch.device("cuda")
-    b, n = 16, KNOWN_POINTS
-    rng = np.random.default_rng(4)
-    states = {p: M.init_state(b, params.grid_cells, dev)
+    states = {p: M.init_state(batch, params.grid_cells, dev)
               for p in (False, True)}
     worst = 0.0
-    for t, mask in enumerate((np.ones(b, bool), rng.random(b) < 0.5)):
-        lanes = np.nonzero(mask)[0]
-        xyz, sem = known_clouds(len(lanes), n, seed=10 + t)
-        counts = rng.integers(n // 2, n + 1, len(lanes)).astype(np.int32)
-        centers = rng.uniform(-1.0, 1.0, (len(lanes), 2)).astype(np.float32)
-        args = (torch.from_numpy(xyz).to(dev), torch.from_numpy(sem).to(dev),
-                torch.from_numpy(counts).to(dev), centers)
+    for t, load in enumerate(loads):
+        args = (torch.from_numpy(load.xyz).to(dev),
+                torch.from_numpy(load.sem).to(dev),
+                torch.from_numpy(load.counts).to(dev), load.centers)
         for plain, st in states.items():
-            load_known(params, st, lanes, *args, plain=plain)
+            load_known(params, st, load.lanes, *args, plain=plain)
         torch.cuda.synchronize()
         kern, ref = states[False], states[True]
         err = _max_abs([(kern.word, ref.word), (kern.aux, ref.aux),
                         (kern.dropped, ref.dropped)])
         worst = max(worst, err)
-        print(f"  load {t} into {len(lanes)} lanes: known_load max abs diff "
-              f"{err}, stored cells {int((kern.word != S.EMPTY_WORD).sum())}, "
-              f"dropped so far {int(kern.dropped.sum())}")
+        print(f"  {label}, load {t} into rows {load.lanes.tolist()[:8]}"
+              f"{'...' if len(load.lanes) > 8 else ''}: known_load max abs "
+              f"diff {err}, stored cells "
+              f"{int((kern.word != S.EMPTY_WORD).sum())}, dropped so far "
+              f"{int(kern.dropped.sum())}")
         if err:
             raise SystemExit(f"known_load disagrees with its plain version "
-                             f"at load {t}")
-    if int(states[False].dropped.sum()) == 0:
+                             f"at load {t} of {label}")
+    return worst, states[False]
+
+
+def phase_known_vs_plain() -> float:
+    """K3 against its plain version: two loads at B=16, 2^18 points per
+    cloud, G=1024 (all lanes, then a seeded subset, so stale rows are
+    reloaded; counts vary per lane); the edge cases of the tiled design
+    (``mapping/clouds.py``); the fake val_seen clouds at L=3 and L=1,
+    G=1024, each loaded twice. The largest absolute difference over word,
+    aux and dropped."""
+    from ivlnce_tpu_torch.mapping import clouds
+
+    params = mapper_params()
+    b, n = 16, KNOWN_POINTS
+    rng = np.random.default_rng(4)
+    loads = []
+    for t, mask in enumerate((np.ones(b, bool), rng.random(b) < 0.5)):
+        lanes = np.nonzero(mask)[0]
+        xyz, sem = known_clouds(len(lanes), n, seed=10 + t)
+        counts = rng.integers(n // 2, n + 1, len(lanes)).astype(np.int32)
+        centers = rng.uniform(-1.0, 1.0, (len(lanes), 2)).astype(np.float32)
+        loads.append(clouds.Load(lanes, xyz, sem, counts, centers))
+    worst, kern = check_known_loads("B=16", params, b, loads)
+    if int(kern.dropped.sum()) == 0:
         raise SystemExit("the clouds dropped no points: drop counting "
                          "untested")
+    del kern
+    for case in clouds.edge_cases():
+        err, _ = check_known_loads(case.name, known_params(case.grid),
+                                   case.batch, case.loads)
+        worst = max(worst, err)
+    for lanes in (3, 1):
+        load = clouds.val_seen_clouds(".", lanes)
+        err, _ = check_known_loads(f"val_seen L={lanes}", params, lanes,
+                                   (load, load))
+        worst = max(worst, err)
     return worst
 
 
 def _known_words(xyz, counts, origin, g, half):
     """Flat grid cells and packed words of the points K3 may store: the
-    cells its atomic pass touches."""
+    cells the first design's atomic pass touches."""
     from ivlnce_tpu_torch.ops import geometry as G
     from ivlnce_tpu_torch.ops import scatter as S
 
@@ -667,86 +707,189 @@ def _known_words(xyz, counts, origin, g, half):
     return cell, word
 
 
-def phase_known_timing(card: str) -> dict:
-    """K3 at B=64, 2^18 points per cloud, G=1024 over six loads of all
-    lanes (median after the first): the kernel, its plain version, the
-    clear of the loaded lanes' grids (reported apart: ``load_lanes`` runs
-    it before K3), each of K3's two passes apart (``torch.profiler``), a
-    byte bound over 3.35 TB/s and a partial yardstick: one
-    ``scatter_reduce_`` amax of the points' packed words into a cleared
-    grid, without payload. The bound charges what the load must move:
-    12 bytes read per valid point (its xyz), 8 read per touched cell (its
-    word), and per changed cell the winner's label byte read and 12 bytes
-    of word and payload written; the lanes' rows, counts and origins read
-    and their drop counts written."""
+def _known_args(load, params, dev) -> tuple:
+    """A load's K3 arguments on the card: rows, origins (grids centred on
+    the load's centres), xyz, labels, counts."""
+    from ivlnce_tpu_torch.mapping import mapper as M
+
+    origin = M._grid_origins(load.centers[:, 0], load.centers[:, 1], params)
+    return (torch.from_numpy(load.lanes.astype(np.int32)).to(dev),
+            torch.from_numpy(origin).to(dev),
+            torch.from_numpy(load.xyz).to(dev),
+            torch.from_numpy(load.sem).to(dev),
+            torch.from_numpy(load.counts).to(dev))
+
+
+def _known_op(state, rows, origin, xyz, sem, counts, half, old=False,
+              plain=False):
+    """One whole load into ``state``'s rows ``rows``, as a call: the
+    current K3 (which clears the rows itself), the old load (the rows
+    cleared as ``mapping.mapper.clear_lanes`` clears them, with the rows'
+    index already on the card, then K3's first design) or the plain
+    version."""
+    from ivlnce_tpu_torch.ops import kernels
+    from ivlnce_tpu_torch.ops import scatter as S
+
+    args = (state.word, state.aux, state.dropped, rows, origin, xyz, sem,
+            counts, half)
+    if plain:
+        return lambda: S.known_load_plain(*args)
+    if not old:
+        return lambda: S.known_load(*args)
+    idx = rows.long()
+
+    def old_load():
+        state.word[idx] = S.EMPTY_WORD
+        state.aux[idx] = 0
+        kernels.known_load_v1(*args)
+    return old_load
+
+
+def _peak_bytes(fn) -> int:
+    """Device memory one call of ``fn`` allocates at its peak, beyond what
+    was allocated before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def time_known_load(card: str, label: str, params, load) -> dict:
+    """One whole load (an untimed one, then the median of six timed ones
+    after the first): the current K3 and the old load (the clear, then
+    K3's first design) in turns, each on its own state, and the plain
+    version; the three states must be equal. Then each design's kernels
+    apart (``torch.profiler``; the old clear's kernels summed) and their
+    sum, the device time of either load; the peak memory each allocates;
+    a partial yardstick (one ``scatter_reduce_`` amax of the points'
+    packed words into an empty grid, without payload or clear); and two
+    byte bounds over 3.35 TB/s. The bound of the whole load charges what
+    the JAX function's result must hold: 12 bytes read per point within
+    the counts (its xyz), the winners' label bytes, 12 bytes written per
+    cell of every loaded row (word and payload), the rows, counts and
+    origins read and the drop counts written. The touched-cells bound
+    (the earlier one, which describes the first design's kernel on rows
+    cleared beforehand) charges 8 bytes read per touched cell and 12
+    written per stored cell in place of the rows."""
     from ivlnce_tpu_torch.mapping import mapper as M
     from ivlnce_tpu_torch.ops import scatter as S
 
-    params = mapper_params()
     dev = torch.device("cuda")
-    b, n, g = 64, KNOWN_POINTS, params.grid_cells
-    lanes = np.arange(b)
-    xyz, sem = known_clouds(b, n, seed=20)
-    xyz_d = torch.from_numpy(xyz).to(dev)
-    sem_d = torch.from_numpy(sem).to(dev)
-    counts = torch.full((b,), n, dtype=torch.int32, device=dev)
-    rows = torch.from_numpy(lanes.astype(np.int32)).to(dev)
-    origin = M._grid_origins(np.zeros(b, np.float32), np.zeros(b, np.float32),
-                             params)
-    origin_d = torch.from_numpy(origin).to(dev)
-    cell, word = _known_words(xyz_d, counts, origin_d, g, params.half_res)
+    g, half = params.grid_cells, params.half_res
+    rows, origin, xyz, sem, counts = _known_args(load, params, dev)
+    lanes, n = sem.shape
+    states = {d: M.init_state(lanes, g, dev)
+              for d in ("ms", "old_ms", "plain_ms")}
+    ops = {d: _known_op(st, rows, origin, xyz, sem, counts, half,
+                        old=d == "old_ms", plain=d == "plain_ms")
+           for d, st in states.items()}
+    cell, word = _known_words(xyz, counts, origin, g, half)
     touched = int(torch.unique(cell).numel())
-    times = {"ms": [], "plain_ms": [], "clear_ms": [], "yardstick_ms": []}
-    states = {"ms": M.init_state(b, g, dev), "plain_ms": M.init_state(b, g, dev)}
-    op = {"ms": S.known_load, "plain_ms": S.known_load_plain}
-    for _ in range(6):
-        for key, st in states.items():
-            clear = cuda_ms(lambda: M.clear_lanes(st, np.zeros(b, bool)),
-                            waits_on_card=True)
-            if key == "ms":
-                times["clear_ms"].append(clear)
-            times[key].append(cuda_ms(lambda: op[key](
-                st.word, st.aux, st.dropped, rows, origin_d, xyz_d, sem_d,
-                counts, params.half_res), waits_on_card=key == "plain_ms"))
-        flat = torch.full((b * g * g,), S.EMPTY_WORD, dtype=torch.int64,
+    times = {d: [] for d in ("ms", "old_wall_ms", "plain_ms",
+                             "yardstick_ms")}
+    # one load of each first, untimed: the first allocation of a size
+    # (the scratch, 16 bytes per point) reaches cudaMalloc, which no timed
+    # enqueue may wait on
+    for op in ops.values():
+        op()
+    for r in range(6):
+        # the old clear's index write waits on the card (it copies its
+        # scalar from the host), so the old load is timed with that wait;
+        # its device time is the sum of its kernels (below)
+        for d in (("old_ms", "ms") if r % 2 == 0 else ("ms", "old_ms")):
+            if d == "ms":
+                times["ms"].append(cuda_ms(ops["ms"]))
+            else:
+                times["old_wall_ms"].append(
+                    cuda_ms(ops["old_ms"], waits_on_card=True))
+        times["plain_ms"].append(cuda_ms(ops["plain_ms"], waits_on_card=True))
+        flat = torch.full((lanes * g * g,), S.EMPTY_WORD, dtype=torch.int64,
                           device=dev)
         times["yardstick_ms"].append(cuda_ms(
             lambda: flat.scatter_reduce_(0, cell, word, "amax")))
         del flat
     torch.cuda.synchronize()
-    kern = states["ms"]
-    changed = int((kern.word != S.EMPTY_WORD).sum())
-    if not (torch.equal(kern.word, states["plain_ms"].word)
-            and torch.equal(kern.aux, states["plain_ms"].aux)):
-        raise SystemExit("known_load disagrees with its plain version at "
-                         "B=64")
-    st = states["ms"]
+    new, old, plain = (states[d] for d in ("ms", "old_ms", "plain_ms"))
+    for other in (old, plain):
+        if not (torch.equal(new.word, other.word)
+                and torch.equal(new.aux, other.aux)
+                and torch.equal(new.dropped, other.dropped)):
+            raise SystemExit(f"the known-map loads disagree at {label}")
+    stored = int((new.word != S.EMPTY_WORD).sum())
+    del states["plain_ms"], plain, ops["plain_ms"]
 
-    def clear_and_load():
-        M.clear_lanes(st, np.zeros(b, bool))
-        S.known_load(st.word, st.aux, st.dropped, rows, origin_d, xyz_d,
-                     sem_d, counts, params.half_res)
+    reps = 5
+    passes = traced_kernel_ms(lambda: [ops["ms"]() for _ in range(reps)],
+                              KERNEL_NAMES["known_load"], reps)
+    old_durs = trace_kernels(lambda: [ops["old_ms"]() for _ in range(reps)])
+    old_passes = {}
+    for n_ in KNOWN_V1_NAMES:
+        v = [d for name, ds in old_durs.items() if n_ in name for d in ds]
+        if len(v) != reps:
+            raise SystemExit(f"traced {len(v)} launches of {n_}, expected "
+                             f"{reps}")
+        old_passes[n_] = float(np.median(v))
+    old_passes["clear (summed)"] = sum(
+        d for name, ds in old_durs.items()
+        if not any(n_ in name for n_ in KNOWN_V1_NAMES) for d in ds) / reps
+    peak = {d: _peak_bytes(ops[d]) for d in ("ms", "old_ms")}
 
-    passes = traced_kernel_ms(
-        lambda: [clear_and_load() for _ in range(5)],
-        ("known_load_max", "known_load_commit"), launches=5)
-    valid = b * n
-    nbytes = (valid * 12 + touched * 8 + changed * (1 + 12)
-              + b * 4 * 5)
+    valid = int(counts.clamp(0, n).sum())
+    small = lanes * 4 * 5
+    whole = valid * 12 + stored + lanes * g * g * 12 + small
+    touched_bytes = valid * 12 + touched * 8 + stored * 13 + small
     result = {k: float(np.median(v[1:])) for k, v in times.items()}
     result.update({
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "points": valid, "touched_cells": touched, "changed_cells": changed,
-        "bytes": nbytes, "pass_ms": passes,
+        "lanes": lanes, "points": valid, "grid": g,
+        "bound_ms": whole / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "bytes": whole,
+        "touched_bound_ms": touched_bytes / HBM_BYTES_PER_S * 1e3,
+        "touched_bytes": touched_bytes, "touched_cells": touched,
+        "stored_cells": stored, "pass_ms": passes, "old_pass_ms": old_passes,
+        "device_ms": sum(passes.values()),
+        "old_ms": sum(old_passes.values()), "peak_bytes": peak["ms"],
+        "old_peak_bytes": peak["old_ms"],
     })
-    print(f"  known_load at B=64, {valid} points [{card}]: kernel "
-          f"{result['ms']:.4f} ms, plain {result['plain_ms']:.4f} ms, "
-          f"clear of 64 grids {result['clear_ms']:.4f} ms, bound "
-          f"{result['bound_ms']:.4f} ms ({nbytes} bytes: {touched} touched, "
-          f"{changed} changed cells), yardstick scatter_reduce_ amax "
-          f"(partial) {result['yardstick_ms']:.4f} ms")
-    print(f"  known_load passes, profiler median of 5 [{card}]: {passes}")
+    result["speedup"] = result["old_ms"] / result["device_ms"]
+    result["x_bound"] = result["ms"] / result["bound_ms"]
+    r = result
+    print(f"  known_load, {label}: {lanes} rows of G={g}, {valid} points "
+          f"[{card}]: whole load {r['ms']:.4f} ms (its kernels summed "
+          f"{r['device_ms']:.4f}), old (clear + first design) kernels "
+          f"summed {r['old_ms']:.4f} ms ({r['speedup']:.2f}x), old with "
+          f"its wait on the card {r['old_wall_ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms; bound of the whole load "
+          f"{r['bound_ms']:.4f} ms ({whole} bytes, {r['x_bound']:.2f}x), "
+          f"touched-cells bound {r['touched_bound_ms']:.4f} ms "
+          f"({touched} touched, {stored} stored cells); yardstick "
+          f"scatter_reduce_ amax (partial) {r['yardstick_ms']:.4f} ms")
+    print(f"    kernels, profiler median of {reps} [{card}]: {passes}; old: "
+          f"{old_passes}; peak memory {peak['ms']} bytes (old "
+          f"{peak['old_ms']})")
     return result
+
+
+def phase_known_timing(card: str) -> dict:
+    """K3 at B=64, 2^18 points per cloud (seeded clouds, ``known_clouds``)
+    and at the known-map evaluation's size (the fake val_seen clouds at
+    L=3 and L=1), G=1024: ``time_known_load``."""
+    from ivlnce_tpu_torch.mapping import clouds
+
+    params = mapper_params()
+    b = 64
+    xyz, sem = known_clouds(b, KNOWN_POINTS, seed=20)
+    full = clouds.Load(np.arange(b), xyz, sem,
+                       np.full(b, KNOWN_POINTS, np.int32),
+                       np.zeros((b, 2), np.float32))
+    out = {"b64": time_known_load(card, "B=64", params, full)}
+    del full, xyz, sem
+    for lanes in (3, 1):
+        out[f"val_seen_l{lanes}"] = time_known_load(
+            card, f"val_seen L={lanes}", params,
+            clouds.val_seen_clouds(".", lanes))
+    return out
 
 
 def seeded_policy(config):
@@ -820,29 +963,20 @@ def phase_known_reference(card: str) -> int:
     then three mapper steps without accumulation, on the card (K3, K2)
     and on the CPU (plain versions): grids and maps must be equal."""
     from ivlnce_tpu_torch.mapping import mapper as M
+    from ivlnce_tpu_torch.mapping.clouds import val_seen_clouds
 
     params = mapper_params()
-    clouds = []
-    for i in range(3):
-        with np.load(f"data/known_maps/gt_semantics/fakeval_seen{i}.npz") as f:
-            clouds.append((f["xyz"].astype(np.float32),
-                           f["semantics"].astype(np.uint8)))
-    n = max(len(c[0]) for c in clouds)
-    xyz = np.zeros((3, n, 3), np.float32)
-    sem = np.zeros((3, n), np.uint8)
-    for i, (x, s) in enumerate(clouds):
-        xyz[i, :len(x)], sem[i, :len(s)] = x, s
-    counts = np.array([len(c[0]) for c in clouds], np.int32)
+    load = val_seen_clouds(".", 3)
     sides = {}
     for dev in ("cpu", "cuda"):
         state = M.init_state(3, params.grid_cells, dev)
         outs = []
         for t, (depth, _, pose, orient, _) in enumerate(walk(3, 256, 3, 5)):
             if t == 0:
-                M.load_lanes(params, state, np.arange(3),
-                             torch.from_numpy(xyz).to(dev),
-                             torch.from_numpy(sem).to(dev),
-                             torch.from_numpy(counts).to(dev),
+                M.load_lanes(params, state, load.lanes,
+                             torch.from_numpy(load.xyz).to(dev),
+                             torch.from_numpy(load.sem).to(dev),
+                             torch.from_numpy(load.counts).to(dev),
                              pose[:, [0, 2]])
             _, occ, smap = M.mapper_step(
                 params, state, torch.from_numpy(depth).to(dev), None, pose,
@@ -1008,7 +1142,7 @@ def phase_end_to_end(card: str, tmp: str, ckpt: str, path: str) -> dict:
                 "rasterize": S.launches.rasterize,
                 "known_load": S.launches.known_load}
     if kernels.v1_launches != v1_before:
-        raise SystemExit(f"the {path} path launched a first-design kernel")
+        raise SystemExit(f"the {path} path launched K3's first design")
 
     with open(os.path.join(results,
                            "iterative_stats_ckpt_0_val_seen.json")) as f:
@@ -1166,8 +1300,7 @@ def phase_trace(card: str, tmp: str, ckpt: str, wall_ms_per_step: float,
     if got["unmatched"]:
         raise SystemExit(f"{got['unmatched']} device events without a "
                          "launch record")
-    current = [n for v in KERNEL_NAMES["current"].values() for n in v]
-    first = [n for v in KERNEL_NAMES["v1"].values() for n in v]
+    current = KERNEL_NAMES["accumulate"] + KERNEL_NAMES["rasterize"]
     mapper_kernels = {
         short: {where: us / 1e3 / TRACE_STEPS for where, us in v.items()}
         for short in current
@@ -1179,8 +1312,8 @@ def phase_trace(card: str, tmp: str, ckpt: str, wall_ms_per_step: float,
     if any(set(v) != {"mapper"} for v in mapper_kernels.values()):
         raise SystemExit(f"mapper kernels outside the mapper range: "
                          f"{mapper_kernels}")
-    if any(n in name for n in first for name in got["by_kernel_us"]):
-        raise SystemExit("a first-design mapper kernel ran in the trace")
+    if any(n in name for n in KNOWN_V1_NAMES for name in got["by_kernel_us"]):
+        raise SystemExit("K3's first design ran in the trace")
     per_step = {k: us / 1e3 / TRACE_STEPS
                 for k, us in got["by_range_us"].items()}
     device_ms = got["device_us"] / 1e3 / TRACE_STEPS
@@ -1235,7 +1368,7 @@ def main() -> int:
     kernels.library()
     print(f"  built in {time.perf_counter() - t0:.2f} s")
     print("  " + kernels.build_log.strip().replace("\n", "\n  "))
-    print("  registers and shared memory of the current K1 and K2 kernels:")
+    print("  registers and shared memory of the K1, K2 and K3 kernels:")
     for kernel, usage in ptxas_usage(kernels.build_log).items():
         print(f"    {kernel}: {usage}")
     clusters = ctypes.c_int(0)
@@ -1246,16 +1379,17 @@ def main() -> int:
           f"resident at once (64 x 64 map), {8 * clusters.value} blocks")
 
     print("phase 3: kernels vs plain versions (256^2, G=1024; K3 2^18 "
-          "points per cloud)")
+          "points per cloud, edge cases, val_seen clouds)")
     worst = phase_kernels_vs_plain_walks()
     worst["known_load"] = phase_known_vs_plain()
 
-    print("phase 4: timing (B=64 and B=3, noise and FakeSim walks; K3 at "
-          "B=64)")
+    print("phase 4: timing (B=64 and B=3, noise and FakeSim walks; K3 "
+          "against its first design at B=64, L=3 and L=1)")
     walks_timed = phase_timing(card)
     timing = {k: walks_timed["fakesim_b64"][k]
               for k in ("accumulate", "rasterize")}
-    timing["known_load"] = phase_known_timing(card)
+    known_timed = phase_known_timing(card)
+    timing["known_load"] = known_timed["b64"]
 
     print("phase 5: full-width steps, card vs CPU")
     reference = {"policy": phase_reference(card),
@@ -1320,20 +1454,30 @@ def main() -> int:
             "bound_by": timing[k]["bound_by"],
             "library_ms": None,
             "yardstick_ms": timing[k]["yardstick_ms"],
+            "cuda_kernels": KERNEL_NAMES[k],
+            "pass_ms": timing[k]["pass_ms"],
         }
         for k in ("accumulate", "rasterize", "known_load")
     ]}
     for k in ("accumulate", "rasterize"):
         entry = next(e for e in line["kernels"] if e["name"] == k)
         entry["walk"] = "fakesim walk B=64"
-        entry["v1_ms"] = timing[k]["v1_ms"]
-        entry["walks"] = {w: {f: v[k][f] for f in ("ms", "v1_ms", "plain_ms",
+        entry["walks"] = {w: {f: v[k][f] for f in ("ms", "plain_ms",
                                                    "bound_ms", "pass_ms")}
                           for w, v in walks_timed.items()}
+    entry = next(e for e in line["kernels"] if e["name"] == "known_load")
+    entry["size"] = "B=64, 2^18 points per cloud, G=1024, the whole load"
+    entry["v1_ms"] = timing["known_load"]["old_ms"]
+    entry["touched_bound_ms"] = timing["known_load"]["touched_bound_ms"]
+    entry["sizes"] = {
+        size: {f: v[f] for f in ("ms", "device_ms", "old_ms", "old_wall_ms",
+                                 "plain_ms", "bound_ms", "touched_bound_ms",
+                                 "pass_ms", "old_pass_ms", "peak_bytes")}
+        for size, v in known_timed.items()}
     print(json.dumps({"end_to_end": e2e, "trace": traces,
                       "reference": reference,
                       "kernel_walks": walks_timed,
-                      "known_load_timing": timing["known_load"],
+                      "known_load_timing": known_timed,
                       "seconds": time.perf_counter() - t_start}))
     print(card)
     print(json.dumps(line))

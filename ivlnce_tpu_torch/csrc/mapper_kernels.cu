@@ -22,11 +22,10 @@
 // K1 (mapper_accumulate) reads 5 bytes per pixel (f32 depth, u8 label)
 // and must settle one 64-bit max per distinct grid cell in a grid far
 // larger than L2 (12 MiB per lane at G = 1024), at ~40 flops per pixel.
-// The first design (mapper_accumulate_v1) gives each pixel a thread and a
-// global atomicMax, then rereads the frame to commit the winners. It is
-// latency-bound (one load per thread in flight), and on rendered frames,
-// where a wall column's pixels share one cell, its atomics serialize in
-// L2. The tile design:
+// A first design gave each pixel a thread and a global atomicMax, then
+// reread the frame to commit the winners. It was latency-bound (one load
+// per thread in flight), and on rendered frames, where a wall column's
+// pixels share one cell, its atomics serialized in L2. The tile design:
 //   - a block of 8 warps takes a 32 x 32 tile of the frame; each thread
 //     holds one column's 4 rows, their 8 loads in flight at once;
 //   - candidates are elected in registers before global memory: among
@@ -48,34 +47,73 @@
 // shared memory cost more than it saved where nothing merges: with a
 // 1024-slot shared hash table, or with __match_any_sync over 32 distinct
 // cells, the max pass on noise frames took 0.10 or 0.083 ms at B = 64
-// against v1's 0.035 ms (chip_smoke.py phase 4, H100). The 64-bit max is
-// associative and commutative, so reducing within a thread, then a warp,
-// then in global memory gives the same word per cell as one global atomic
-// per pixel; a pixel that lost to a candidate of its own cell cannot win
-// globally, so committing only candidates commits every winner.
+// against the first design's 0.035 ms (chip_smoke.py phase 4, H100). The
+// 64-bit max is associative and commutative, so reducing within a thread,
+// then a warp, then in global memory gives the same word per cell as one
+// global atomic per pixel; a pixel that lost to a candidate of its own
+// cell cannot win globally, so committing only candidates commits every
+// winner.
 //
 // K2 (mapper_rasterize) reads the 192^2 window of the grid (8-byte words,
 // and the payload of each stored point in the height window) and writes
-// two u8 maps. The first design (mapper_rasterize_v1) runs one block per
-// lane: 64 of 132 SMs at B = 64, 3 at the evaluation's 3 lanes, each
-// thread walking 36 cells with a dependent word-then-payload load. The
-// cluster design splits each lane's window over a thread-block cluster of
-// 8 blocks (24 rows each at window 192; a ragged window leaves the last
-// blocks fewer rows or none), 512 threads each. A thread issues the key
-// loads (the high halves of the words) of all its cells at once, then the
-// payload loads of those in the height window: two round trips to memory
-// per thread. Each block keeps its own 64 x 64 candidate map (32 KiB) in
-// shared memory; neighbouring window cells that land in one map cell are
-// merged by two shuffles first, so fewer 64-bit shared atomics contend
-// for an address. After cluster.sync() each block reduces one eighth of
-// the map cells over all eight copies through distributed shared memory
-// and writes them; a final cluster.sync() keeps every block's map alive
-// while its peers read it.
+// two u8 maps. A first design ran one block per lane: 64 of 132 SMs at
+// B = 64, 3 at the evaluation's 3 lanes, each thread walking 36 cells
+// with a dependent word-then-payload load. The cluster design splits each
+// lane's window over a thread-block cluster of 8 blocks (24 rows each at
+// window 192; a ragged window leaves the last blocks fewer rows or none),
+// 512 threads each. A thread issues the key loads (the high halves of the
+// words) of all its cells at once, then the payload loads of those in the
+// height window: two round trips to memory per thread. Each block keeps
+// its own 64 x 64 candidate map (32 KiB) in shared memory; neighbouring
+// window cells that land in one map cell are merged by two shuffles
+// first, so fewer 64-bit shared atomics contend for an address. After
+// cluster.sync() each block reduces one eighth of the map cells over all
+// eight copies through distributed shared memory and writes them; a final
+// cluster.sync() keeps every block's map alive while its peers read it.
 //
-// K3 is K1's per-point form without the unprojection: it reads 13 bytes
-// per point (f32 xyz, u8 label) and does one 8-byte atomic per point into
-// the cleared grid, grid-striding over each cloud's real count rather
-// than the padded capacity, so padding costs nothing.
+// K3 (mapper_known_load) overwrites each loaded row whole: the row is
+// cleared and each cell's winner among the cloud's points is written, as
+// the JAX function clears the lane and then loads it. It must move the
+// row (12 bytes per cell: 805 MB for 64 rows of 1024^2) and the cloud
+// (13 bytes per point). The points' cells are random in a grid far larger
+// than L2, so a design that settles them in device memory pays a
+// scattered 32-byte sector per point and per pass: the first design
+// (mapper_known_load_v1, kept for comparison) did one global atomicMax
+// per point into a grid cleared beforehand by the caller, then reread the
+// cloud and the grid to commit the winners. The tiled design bins the
+// points by 64 x 64 tile of the row and settles each tile in shared
+// memory, in two launches:
+//   1. scatter (known_bin_scatter): one block per chunk of 2048 points,
+//      8 per thread with all their loads in flight, sorts the chunk's
+//      points on the grid by tile in shared memory (a counting sort) and
+//      writes them as 16-byte records (the low word 0xFFFFFFFE - i, the
+//      height key, the payload, the cell within the tile) to the chunk's
+//      own part of the bins, in one contiguous store; each tile's run in
+//      the chunk (start, length) goes to a table. Points off the grid are
+//      summed per warp into dropped;
+//   2. tile (known_tile_load): one block per (lane, tile) starts a shared
+//      tile of empty words and zero payloads (48 KiB), gathers its runs
+//      from every chunk (their lengths scanned in shared memory: glue over
+//      chunks integers), takes the 64-bit max of its records' words with
+//      shared atomics, sweeps the records again (L2 hits) so that the
+//      record holding its cell's max writes the payload, and writes the
+//      whole tile, the clear included, with 16-byte streaming stores (per
+//      cell where the tile is ragged).
+// Two earlier forms of this design lost (chip_smoke.py phase 4, H100, B =
+// 64): a count pass over the cloud, a scan, then a scatter of each point's
+// record straight to its tile's bin (one per point in point order: a
+// warp's 32 stores fell on up to 32 bins, and L2 evicted the sectors half
+// filled) took 0.655 ms for the scatter alone; sorting each chunk by tile
+// first cut that to 0.278, and the count pass's second read of the cloud
+// cost 0.078 more. Here the cloud is read once and the bins written in
+// order.
+// The row is written once and coalesced, the cloud read once, the bins
+// (16 bytes per point on the grid) written and read once. The 64-bit
+// max is associative and commutative, so the order in which a tile meets
+// its records changes no word, and equal keys still go to the lowest
+// index. A point whose key equals EMPTY_KEY never beats the empty word,
+// so its cell stays empty. A tile's block loops over its records however
+// many: a skewed cloud puts a quarter of its points in a few tiles.
 //
 // Tie rules, kept by every version: a stored point holds low word
 // 0xFFFFFFFF and so wins an equal key; among a frame's new points the
@@ -120,6 +158,23 @@ constexpr int kRasterThreads = 512;
 // every cell of a 192-cell window's band (24 rows) has its loads in flight
 // at once: 24 * 192 / 512 = 9 per thread
 constexpr int kRasterUnroll = 9;
+
+// K3 tiled design
+constexpr int kKnownThreads = 256;
+constexpr int kKnownTileShift = 6;  // 64 x 64 cells per tile
+constexpr int kKnownTile = 1 << kKnownTileShift;
+constexpr int kKnownTileCells = kKnownTile * kKnownTile;
+// a tile's shared words and payloads: 32 KiB + 16 KiB
+constexpr size_t kKnownTileSmem =
+    kKnownTileCells * (sizeof(long long) + sizeof(int));
+constexpr int kKnownRecordUnroll = 4;  // records in flight per thread
+// the scatter pass takes each cloud in chunks of 2048 points, one block
+// each, 8 per thread with all their loads in flight
+constexpr int kKnownChunkPerThread = 8;
+constexpr int kKnownChunk = kKnownThreads * kKnownChunkPerThread;
+constexpr int kKnownTileThreads = 512;
+constexpr long long kEmptyWord =
+    (long long)(((unsigned long long)0x80000000u << 32) | 0xFFFFFFFFull);
 
 __device__ __forceinline__ int sortable_from_float(float x) {
   const int s = __float_as_int(x);
@@ -182,74 +237,6 @@ __device__ __forceinline__ FramePoint frame_point_of(
   out.aux = (quantize(wx, c_abs, half, inv_half) << 18) |
             (quantize(wz, r_abs, half, inv_half) << 4) | (label & 0xF);
   return out;
-}
-
-// The same for pixel p (row-major) of lane b's H x W frame, read here.
-__device__ __forceinline__ FramePoint frame_point(
-    const float* __restrict__ depth, const uint8_t* __restrict__ sem,
-    const float* __restrict__ lane, const int* __restrict__ origin,
-    const float* __restrict__ rays_x, const float* __restrict__ rays_y,
-    int b, int p, int H, int W, int G, float dmin, float dmax, float dscale,
-    float half, float inv_half) {
-  const int i = p / W;
-  const size_t pix = (size_t)b * H * W + p;
-  return frame_point_of(depth[pix], sem[pix], lane, origin, rays_x, rays_y,
-                        b, i, p - i * W, G, dmin, dmax, dscale, half,
-                        inv_half);
-}
-
-// ---------------------------------------------------------------------------
-// K1, first design (v1): one thread and one global atomic per pixel. Kept
-// beside the tile design for comparison (mapper_accumulate_v1).
-// ---------------------------------------------------------------------------
-
-// Pass 1: per cell, the 64-bit max of key << 32 | (0xFFFFFFFE - pixel).
-// A stored point holds low word 0xFFFFFFFF and so wins equal keys.
-__global__ void accumulate_max(
-    long long* __restrict__ word, int* __restrict__ dropped,
-    const float* __restrict__ depth, const uint8_t* __restrict__ sem,
-    const float* __restrict__ lane, const int* __restrict__ origin,
-    const float* __restrict__ rays_x, const float* __restrict__ rays_y,
-    int H, int W, int G, float dmin, float dmax, float dscale, float half,
-    float inv_half) {
-  const int b = blockIdx.y;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  bool lost = false;
-  if (p < H * W) {
-    const FramePoint fp = frame_point(depth, sem, lane, origin, rays_x,
-                                      rays_y, b, p, H, W, G, dmin, dmax,
-                                      dscale, half, inv_half);
-    lost = fp.valid && !fp.inside;
-    if (fp.valid && fp.inside) {
-      atomicMax(word + fp.cell, make_word(fp.key, 0xFFFFFFFEu - (unsigned)p));
-    }
-  }
-  const unsigned lost_mask = __ballot_sync(kFullMask, lost);
-  if ((threadIdx.x & 31) == 0 && lost_mask != 0) {
-    atomicAdd(dropped + b, __popc(lost_mask));
-  }
-}
-
-// Pass 2: the pixel whose word survived writes its payload and becomes the
-// cell's stored point.
-__global__ void accumulate_commit(
-    long long* __restrict__ word, int* __restrict__ aux,
-    const float* __restrict__ depth, const uint8_t* __restrict__ sem,
-    const float* __restrict__ lane, const int* __restrict__ origin,
-    const float* __restrict__ rays_x, const float* __restrict__ rays_y,
-    int H, int W, int G, float dmin, float dmax, float dscale, float half,
-    float inv_half) {
-  const int b = blockIdx.y;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= H * W) return;
-  const FramePoint fp = frame_point(depth, sem, lane, origin, rays_x, rays_y,
-                                    b, p, H, W, G, dmin, dmax, dscale, half,
-                                    inv_half);
-  if (!(fp.valid && fp.inside)) return;
-  if (word[fp.cell] == make_word(fp.key, 0xFFFFFFFEu - (unsigned)p)) {
-    aux[fp.cell] = fp.aux;
-    word[fp.cell] = make_word(fp.key, kIncumbentLow);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -474,41 +461,6 @@ __device__ __forceinline__ void write_map_cell(
   semantic[k] = ((v >> 56) & 1ull) ? (uint8_t)(v & 0xFull) : 0;
 }
 
-// K2, first design (v1): one block per lane, the map's candidate maxima in
-// shared memory. Kept beside the cluster design for comparison
-// (mapper_rasterize_v1).
-__global__ void rasterize_kernel(
-    const long long* __restrict__ word, const int* __restrict__ aux,
-    const int* __restrict__ start, const int* __restrict__ origin,
-    const float* __restrict__ lane, uint8_t* __restrict__ occupancy,
-    uint8_t* __restrict__ semantic, int G, int window, int rows, int cols,
-    float half, float rq, float half_h, float half_w, float inv_res) {
-  extern __shared__ unsigned long long best[];
-  const int b = blockIdx.x;
-  const int n_map = rows * cols;
-  for (int k = threadIdx.x; k < n_map; k += blockDim.x) best[k] = 0ull;
-  __syncthreads();
-
-  const RasterLane L = raster_lane(start, origin, lane, b);
-  const int n_win = window * window;
-  for (int idx = threadIdx.x; idx < n_win; idx += blockDim.x) {
-    const int i = idx / window;
-    const int j = idx - i * window;
-    const size_t g = ((size_t)b * G + (L.sr + i)) * G + (L.sc + j);
-    const int key = (int)(word[g] >> 32);
-    if (!in_height(L, key)) continue;
-    unsigned long long cand;
-    const int m = raster_place(L, i, j, idx, key, aux[g], rows, cols, half,
-                               rq, half_h, half_w, inv_res, &cand);
-    if (m >= 0) atomicMax(best + m, cand);
-  }
-  __syncthreads();
-  const size_t out = (size_t)b * n_map;
-  for (int k = threadIdx.x; k < n_map; k += blockDim.x) {
-    write_map_cell(best[k], out + k, occupancy, semantic);
-  }
-}
-
 // K2, cluster design: grid (8, lanes), one cluster of 8 blocks per lane.
 // Block `rank` takes window rows [rank * band, (rank + 1) * band) and
 // map cells [rank * share, (rank + 1) * share).
@@ -601,36 +553,61 @@ __global__ void __cluster_dims__(kRasterCluster, 1, 1)
   cluster.sync();
 }
 
-// One known-map point (cloud l, index i): grid cell, key and payload.
+// One known-map point: its inputs, and its grid cell, key and payload.
+struct RawPoint {
+  float x, y, z;
+  uint8_t label;
+};
+
 struct KnownPoint {
   bool inside;
-  long long cell;
+  int r, c;        // its cell in the row, when inside
+  long long cell;  // the same in the whole grid
   int key;
   int aux;
 };
 
+__device__ __forceinline__ RawPoint raw_point(const float* __restrict__ xyz,
+                                              const uint8_t* __restrict__ sem,
+                                              size_t p) {
+  return RawPoint{xyz[3 * p], xyz[3 * p + 1], xyz[3 * p + 2], sem[p]};
+}
+
+// Point q of cloud l, loaded into row rows[l] whose cell (0, 0) is the
+// absolute half-resolution cell origin[l].
+__device__ __forceinline__ KnownPoint known_point_of(
+    const RawPoint& q, const int* __restrict__ rows,
+    const int* __restrict__ origin, int l, int G, float half,
+    float inv_half) {
+  const int r_abs = __float2int_rn(__fmul_rn(q.z, inv_half));
+  const int c_abs = __float2int_rn(__fmul_rn(q.x, inv_half));
+  KnownPoint out;
+  out.r = r_abs - origin[2 * l];
+  out.c = c_abs - origin[2 * l + 1];
+  out.inside = out.r >= 0 && out.r < G && out.c >= 0 && out.c < G;
+  out.cell = ((long long)rows[l] * G + out.r) * G + out.c;
+  out.key = sortable_from_float(q.y);
+  out.aux = (quantize(q.x, c_abs, half, inv_half) << 18) |
+            (quantize(q.z, r_abs, half, inv_half) << 4) | (q.label & 0xF);
+  return out;
+}
+
+// Point i of cloud l.
 __device__ __forceinline__ KnownPoint known_point(
     const float* __restrict__ xyz, const uint8_t* __restrict__ sem,
     const int* __restrict__ rows, const int* __restrict__ origin, int l,
     int i, int N, int G, float half, float inv_half) {
-  const size_t p = (size_t)l * N + i;
-  const float x = xyz[3 * p];
-  const float y = xyz[3 * p + 1];
-  const float z = xyz[3 * p + 2];
-  const int r_abs = __float2int_rn(__fmul_rn(z, inv_half));
-  const int c_abs = __float2int_rn(__fmul_rn(x, inv_half));
-  const int r = r_abs - origin[2 * l];
-  const int c = c_abs - origin[2 * l + 1];
-  KnownPoint out;
-  out.inside = r >= 0 && r < G && c >= 0 && c < G;
-  out.cell = ((long long)rows[l] * G + r) * G + c;
-  out.key = sortable_from_float(y);
-  out.aux = (quantize(x, c_abs, half, inv_half) << 18) |
-            (quantize(z, r_abs, half, inv_half) << 4) | (sem[p] & 0xF);
-  return out;
+  return known_point_of(raw_point(xyz, sem, (size_t)l * N + i), rows,
+                        origin, l, G, half, inv_half);
 }
 
-// K3 pass 1: per cell, the 64-bit max of key << 32 | (0xFFFFFFFE - i) over
+// ---------------------------------------------------------------------------
+// K3, first design (v1): one global atomic per point into rows the caller
+// has cleared, then a second pass over the cloud commits the winners.
+// Kept beside the tiled design for comparison (mapper_known_load_v1).
+// ---------------------------------------------------------------------------
+
+// Pass 1: per cell, the 64-bit max of key << 32 | (0xFFFFFFFE - i) over
 // the cloud's first counts[l] points, grid-strided; points off the grid
 // are summed per warp into dropped.
 __global__ void known_load_max(
@@ -658,7 +635,7 @@ __global__ void known_load_max(
   }
 }
 
-// K3 pass 2: the point whose word survived writes its payload and becomes
+// Pass 2: the point whose word survived writes its payload and becomes
 // the cell's stored point.
 __global__ void known_load_commit(
     long long* __restrict__ word, int* __restrict__ aux,
@@ -680,11 +657,317 @@ __global__ void known_load_commit(
   }
 }
 
+// ---------------------------------------------------------------------------
+// K3, tiled design: each chunk of the cloud sorted by tile into its own
+// bins, then one block per tile settles it in shared memory and writes it
+// whole.
+// ---------------------------------------------------------------------------
+
+// How a load of L clouds of N points into G x G rows is cut: tiles of
+// 64 x 64 cells, chunks of 2048 points, and the scratch buffer's parts:
+// the bins (per lane and chunk, 2048 records: the chunk's points on the
+// grid sorted by tile), then per (lane, tile, chunk) the first record of
+// the tile's run in the chunk and the run's length.
+struct KnownLayout {
+  int tiles_side, tiles, chunks;
+  size_t starts_at, lengths_at, bytes;
+};
+
+KnownLayout known_layout(int L, int N, int G) {
+  KnownLayout k;
+  k.tiles_side = (G + kKnownTile - 1) / kKnownTile;
+  k.tiles = k.tiles_side * k.tiles_side;
+  k.chunks = std::max(1, (N + kKnownChunk - 1) / kKnownChunk);
+  const size_t runs = (size_t)L * k.tiles * k.chunks;
+  k.starts_at = (size_t)L * k.chunks * kKnownChunk * sizeof(int4);
+  k.lengths_at = k.starts_at + runs * sizeof(int);
+  k.bytes = k.lengths_at + runs * sizeof(int);
+  return k;
+}
+
+// Dynamic shared memory of the scatter pass (a chunk's records staged in
+// tile order, two per-tile counters) and of the tile pass (the tile's
+// words and payloads, and three per-chunk arrays: its run's start, length
+// and the exclusive scan of the lengths).
+size_t known_scatter_smem(int tiles) {
+  return (size_t)kKnownChunk * sizeof(int4) + (size_t)2 * tiles * sizeof(int);
+}
+
+size_t known_tile_smem(int chunks) {
+  return kKnownTileSmem + (size_t)3 * chunks * sizeof(int);
+}
+
+// Exclusive scan of in[0..n) into out[0..n) by a block of kThreads
+// threads, each taking a run of consecutive entries; returns the total to
+// every thread, with out[] visible to the whole block. warp_sums holds
+// kThreads / 32 + 1 ints of shared memory.
+template <int kThreads>
+__device__ int block_exclusive_scan(const int* in, int* out, int n,
+                                    int* warp_sums) {
+  constexpr int kWarps = kThreads / 32;
+  const int per = (n + kThreads - 1) / kThreads;
+  const int i0 = min(n, (int)threadIdx.x * per);
+  const int i1 = min(n, i0 + per);
+  int sum = 0;
+  for (int i = i0; i < i1; ++i) sum += in[i];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int incl = sum;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(kFullMask, incl, d);
+    if (lane >= d) incl += v;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = lane < kWarps ? warp_sums[lane] : 0;
+    int wi = w;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(kFullMask, wi, d);
+      if (lane >= d) wi += v;
+    }
+    if (lane < kWarps) warp_sums[lane] = wi - w;
+    if (lane == kWarps - 1) warp_sums[kWarps] = wi;
+  }
+  __syncthreads();
+  int run = warp_sums[warp] + incl - sum;
+  for (int i = i0; i < i1; ++i) {
+    out[i] = run;
+    run += in[i];
+  }
+  const int total = warp_sums[kWarps];
+  __syncthreads();
+  return total;
+}
+
+// Launch 1, grid (chunks, L): chunk blockIdx.x of cloud l, 8 points per
+// thread (index chunk * 2048 + u * 256 + tid) with all their loads in
+// flight. Its points on the grid are sorted by tile in shared memory (a
+// counting sort) and written, in tile order, to the chunk's own 2048
+// records of the bins: one contiguous store. Each tile's run (its first
+// record in the chunk, its length) goes to the run tables at
+// [l][tile][chunk]. Off-grid points add to dropped[rows[l]]. A record is
+// (low word, key, payload, cell in the tile).
+__global__ void __launch_bounds__(kKnownThreads, 4) known_bin_scatter(
+    int4* __restrict__ bins, int* __restrict__ run_start,
+    int* __restrict__ run_length, int* __restrict__ dropped,
+    const int* __restrict__ rows, const int* __restrict__ origin,
+    const float* __restrict__ xyz, const uint8_t* __restrict__ sem,
+    const int* __restrict__ counts, int N, int G, int tiles_side,
+    float half, float inv_half) {
+  extern __shared__ int4 stage[];
+  __shared__ int warp_sums[kKnownThreads / 32 + 1];
+  const int l = blockIdx.y;
+  const int chunk = blockIdx.x;
+  const int tiles = tiles_side * tiles_side;
+  int* tile_count = reinterpret_cast<int*>(stage + kKnownChunk);
+  int* tile_first = tile_count + tiles;
+  for (int t = threadIdx.x; t < tiles; t += kKnownThreads) tile_count[t] = 0;
+  const int count = min(counts[l], N);
+  int tile[kKnownChunkPerThread], rank[kKnownChunkPerThread];
+  int4 rec[kKnownChunkPerThread];
+  int lost = 0;
+  const int first = chunk * kKnownChunk;
+  if (first < count) {
+    // a point past the count loads point 0, a real one, and is dropped
+    RawPoint q[kKnownChunkPerThread];
+#pragma unroll
+    for (int u = 0; u < kKnownChunkPerThread; ++u) {
+      const int i = first + u * kKnownThreads + threadIdx.x;
+      q[u] = raw_point(xyz, sem, (size_t)l * N + (i < count ? i : 0));
+    }
+#pragma unroll
+    for (int u = 0; u < kKnownChunkPerThread; ++u) {
+      const int i = first + u * kKnownThreads + threadIdx.x;
+      const KnownPoint kp =
+          known_point_of(q[u], rows, origin, l, G, half, inv_half);
+      const bool real = i < count;
+      tile[u] = real && kp.inside ? (kp.r >> kKnownTileShift) * tiles_side +
+                                        (kp.c >> kKnownTileShift)
+                                  : -1;
+      rec[u] = make_int4((int)(0xFFFFFFFEu - (unsigned)i), kp.key, kp.aux,
+                         ((kp.r & (kKnownTile - 1)) << kKnownTileShift) |
+                             (kp.c & (kKnownTile - 1)));
+      lost += real && !kp.inside;
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < kKnownChunkPerThread; ++u) tile[u] = -1;
+  }
+  lost = __reduce_add_sync(kFullMask, lost);
+  if ((threadIdx.x & 31) == 0 && lost != 0) {
+    atomicAdd(dropped + rows[l], lost);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < kKnownChunkPerThread; ++u) {
+    rank[u] = tile[u] >= 0 ? atomicAdd(tile_count + tile[u], 1) : 0;
+  }
+  __syncthreads();
+  const int n = block_exclusive_scan<kKnownThreads>(tile_count, tile_first,
+                                                    tiles, warp_sums);
+#pragma unroll
+  for (int u = 0; u < kKnownChunkPerThread; ++u) {
+    if (tile[u] >= 0) stage[tile_first[tile[u]] + rank[u]] = rec[u];
+  }
+  __syncthreads();
+  int4* out = bins + ((size_t)l * gridDim.x + chunk) * kKnownChunk;
+  for (int k = threadIdx.x; k < n; k += kKnownThreads) out[k] = stage[k];
+  const size_t runs = ((size_t)l * tiles) * gridDim.x + chunk;
+  for (int t = threadIdx.x; t < tiles; t += kKnownThreads) {
+    run_start[runs + (size_t)t * gridDim.x] = tile_first[t];
+    run_length[runs + (size_t)t * gridDim.x] = tile_count[t];
+  }
+}
+
+__device__ __forceinline__ long long record_word(const int4& rec) {
+  return make_word(rec.y, (unsigned)rec.x);
+}
+
+// Records k0 + u * 512 + tid (u < 4) of a tile, all loaded at once: the
+// tile's runs in every chunk, flattened; each record's chunk is found by
+// a binary search of the runs' scanned lengths (prefix, chunks + 1
+// entries). Past the tile's n records, cell -1.
+__device__ __forceinline__ void gather_tile_records(
+    const int4* __restrict__ lane_bins, const int* start, const int* prefix,
+    int chunks, int n, int k0, int4 (&r)[kKnownRecordUnroll]) {
+#pragma unroll
+  for (int u = 0; u < kKnownRecordUnroll; ++u) {
+    const int k = k0 + u * kKnownTileThreads + threadIdx.x;
+    r[u] = make_int4(0, 0, 0, -1);
+    if (k < n) {
+      // the last chunk whose run begins at or before k
+      int lo = 0, hi = chunks - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (prefix[mid] <= k) {
+          lo = mid;
+        } else {
+          hi = mid - 1;
+        }
+      }
+      r[u] = lane_bins[(size_t)lo * kKnownChunk + start[lo] +
+                       (k - prefix[lo])];
+    }
+  }
+}
+
+// Launch 2, grid (tiles, L): tile t of row rows[l], settled in shared
+// memory from its records and written whole. Every cell of the row is
+// written, so the row needs no clear beforehand. `aligned`: the rows'
+// base addresses are 16-byte aligned and G % 4 == 0, so a full tile's
+// rows go out as 16-byte stores.
+__global__ void __launch_bounds__(kKnownTileThreads) known_tile_load(
+    long long* __restrict__ word, int* __restrict__ aux,
+    const int4* __restrict__ bins, const int* __restrict__ run_start,
+    const int* __restrict__ run_length, const int* __restrict__ rows,
+    int G, int tiles_side, int chunks, bool aligned) {
+  extern __shared__ long long tile_word[];
+  __shared__ int warp_sums[kKnownTileThreads / 32 + 1];
+  int* tile_aux = reinterpret_cast<int*>(tile_word + kKnownTileCells);
+  int* start = tile_aux + kKnownTileCells;
+  int* length = start + chunks;
+  int* prefix = length + chunks;
+  const int l = blockIdx.y;
+  const int t = blockIdx.x;
+  const int tiles = tiles_side * tiles_side;
+  const size_t runs = ((size_t)l * tiles + t) * chunks;
+  for (int c = threadIdx.x; c < chunks; c += kKnownTileThreads) {
+    start[c] = run_start[runs + c];
+    length[c] = run_length[runs + c];
+  }
+  for (int k = threadIdx.x; k < kKnownTileCells; k += kKnownTileThreads) {
+    tile_word[k] = kEmptyWord;
+    tile_aux[k] = 0;
+  }
+  __syncthreads();
+  const int n = block_exclusive_scan<kKnownTileThreads>(length, prefix,
+                                                        chunks, warp_sums);
+  const int4* lane_bins = bins + (size_t)l * chunks * kKnownChunk;
+  constexpr int kStep = kKnownTileThreads * kKnownRecordUnroll;
+  // the max of each cell's words. A thread's first records stay in
+  // registers for the second sweep; a tile may hold any number more.
+  int4 kept[kKnownRecordUnroll], r[kKnownRecordUnroll];
+  gather_tile_records(lane_bins, start, prefix, chunks, n, 0, kept);
+#pragma unroll
+  for (int u = 0; u < kKnownRecordUnroll; ++u) {
+    if (kept[u].w >= 0) atomicMax(tile_word + kept[u].w, record_word(kept[u]));
+  }
+  for (int k0 = kStep; k0 < n; k0 += kStep) {
+    gather_tile_records(lane_bins, start, prefix, chunks, n, k0, r);
+#pragma unroll
+    for (int u = 0; u < kKnownRecordUnroll; ++u) {
+      if (r[u].w >= 0) atomicMax(tile_word + r[u].w, record_word(r[u]));
+    }
+  }
+  __syncthreads();
+  // the record that holds its cell's max writes its payload (words are
+  // distinct within a cell: their low words hold the point index)
+#pragma unroll
+  for (int u = 0; u < kKnownRecordUnroll; ++u) {
+    if (kept[u].w >= 0 && tile_word[kept[u].w] == record_word(kept[u])) {
+      tile_aux[kept[u].w] = kept[u].z;
+    }
+  }
+  for (int k0 = kStep; k0 < n; k0 += kStep) {
+    gather_tile_records(lane_bins, start, prefix, chunks, n, k0, r);
+#pragma unroll
+    for (int u = 0; u < kKnownRecordUnroll; ++u) {
+      if (r[u].w >= 0 && tile_word[r[u].w] == record_word(r[u])) {
+        tile_aux[r[u].w] = r[u].z;
+      }
+    }
+  }
+  __syncthreads();
+  // the tile out: a winner's word becomes key << 32 | 0xFFFFFFFF, and an
+  // empty cell's word already is EMPTY_KEY << 32 | 0xFFFFFFFF
+  const int r0 = (t / tiles_side) * kKnownTile;
+  const int c0 = (t % tiles_side) * kKnownTile;
+  const size_t at = ((size_t)rows[l] * G + r0) * G + c0;
+  long long* out_word = word + at;
+  int* out_aux = aux + at;
+  const int n_rows = min(kKnownTile, G - r0);
+  const int n_cols = min(kKnownTile, G - c0);
+  if (aligned && n_rows == kKnownTile && n_cols == kKnownTile) {
+    // two words per 16-byte store: the int4's .x and .z are their low
+    // words
+    for (int k = threadIdx.x; k < kKnownTileCells / 2;
+         k += kKnownTileThreads) {
+      const int rr = k / (kKnownTile / 2);
+      const int cc = (k % (kKnownTile / 2)) * 2;
+      int4 v = *reinterpret_cast<const int4*>(tile_word + rr * kKnownTile +
+                                              cc);
+      v.x = (int)kIncumbentLow;
+      v.z = (int)kIncumbentLow;
+      __stcs(reinterpret_cast<int4*>(out_word + (size_t)rr * G + cc), v);
+    }
+    for (int k = threadIdx.x; k < kKnownTileCells / 4;
+         k += kKnownTileThreads) {
+      const int rr = k / (kKnownTile / 4);
+      const int cc = (k % (kKnownTile / 4)) * 4;
+      __stcs(reinterpret_cast<int4*>(out_aux + (size_t)rr * G + cc),
+             *reinterpret_cast<const int4*>(tile_aux + rr * kKnownTile + cc));
+    }
+  } else {
+    for (int k = threadIdx.x; k < kKnownTileCells; k += kKnownTileThreads) {
+      const int rr = k >> kKnownTileShift;
+      const int cc = k & (kKnownTile - 1);
+      if (rr < n_rows && cc < n_cols) {
+        out_word[(size_t)rr * G + cc] =
+            tile_word[k] | (long long)kIncumbentLow;
+        out_aux[(size_t)rr * G + cc] = tile_aux[k];
+      }
+    }
+  }
+}
+
 dim3 accumulate_tiles(int B, int H, int W) {
   return dim3((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
 }
 
-cudaError_t allow_map_smem(const void* kernel, size_t smem) {
+cudaError_t allow_smem(const void* kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -698,7 +981,7 @@ extern "C" int mapper_rasterize_resident_clusters(int rows, int cols,
                                                   int* clusters) {
   const size_t smem = (size_t)rows * cols * sizeof(unsigned long long);
   const cudaError_t err =
-      allow_map_smem((const void*)rasterize_cluster, smem);
+      allow_smem((const void*)rasterize_cluster, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(kRasterCluster, 1, 1);
@@ -737,25 +1020,6 @@ extern "C" int mapper_accumulate(
   return (int)cudaGetLastError();
 }
 
-extern "C" int mapper_accumulate_v1(
-    long long* word, int* aux, int* dropped, const float* depth,
-    const uint8_t* sem, const float* lane, const int* origin,
-    const float* rays_x, const float* rays_y, int B, int H, int W, int G,
-    float dmin, float dmax, float dscale, float half, float inv_half,
-    cudaStream_t stream) {
-  const int threads = 256;
-  const dim3 grid((H * W + threads - 1) / threads, B);
-  accumulate_max<<<grid, threads, 0, stream>>>(
-      word, dropped, depth, sem, lane, origin, rays_x, rays_y, H, W, G, dmin,
-      dmax, dscale, half, inv_half);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  accumulate_commit<<<grid, threads, 0, stream>>>(
-      word, aux, depth, sem, lane, origin, rays_x, rays_y, H, W, G, dmin,
-      dmax, dscale, half, inv_half);
-  return (int)cudaGetLastError();
-}
-
 extern "C" int mapper_rasterize(
     const long long* word, const int* aux, const int* start,
     const int* origin, const float* lane, uint8_t* occupancy,
@@ -765,7 +1029,7 @@ extern "C" int mapper_rasterize(
   // a window cell's offset i * G + j must fit 32 bits
   if ((long long)G * G > 0xFFFFFFFFll) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)rows * cols * sizeof(unsigned long long);
-  cudaError_t err = allow_map_smem((const void*)rasterize_cluster, smem);
+  cudaError_t err = allow_smem((const void*)rasterize_cluster, smem);
   if (err != cudaSuccess) return (int)err;
   rasterize_cluster<<<dim3(kRasterCluster, B), kRasterThreads, smem,
                       stream>>>(word, aux, start, origin, lane, occupancy,
@@ -774,22 +1038,48 @@ extern "C" int mapper_rasterize(
   return (int)cudaGetLastError();
 }
 
-extern "C" int mapper_rasterize_v1(
-    const long long* word, const int* aux, const int* start,
-    const int* origin, const float* lane, uint8_t* occupancy,
-    uint8_t* semantic, int B, int G, int window, int rows, int cols,
-    float half, float rq, float half_h, float half_w, float inv_res,
-    cudaStream_t stream) {
-  const size_t smem = (size_t)rows * cols * sizeof(unsigned long long);
-  cudaError_t err = allow_map_smem((const void*)rasterize_kernel, smem);
+// Bytes of scratch mapper_known_load needs for L clouds of N points into
+// G x G rows: counts, offsets and bins (16 bytes per point).
+extern "C" long long mapper_known_load_scratch_bytes(int L, int N, int G) {
+  return (long long)known_layout(L, N, G).bytes;
+}
+
+// Rows rows[0..L) (distinct) are overwritten: cleared, then loaded with
+// cloud l's first counts[l] points.
+extern "C" int mapper_known_load(
+    long long* word, int* aux, int* dropped, const int* rows,
+    const int* origin, const float* xyz, const uint8_t* sem,
+    const int* counts, void* scratch, int L, int N, int G, float half,
+    float inv_half, cudaStream_t stream) {
+  if (L == 0) return 0;
+  const KnownLayout k = known_layout(L, N, G);
+  char* base = static_cast<char*>(scratch);
+  int4* bins = reinterpret_cast<int4*>(base);
+  int* run_start = reinterpret_cast<int*>(base + k.starts_at);
+  int* run_length = reinterpret_cast<int*>(base + k.lengths_at);
+  const size_t scatter_smem = known_scatter_smem(k.tiles);
+  const size_t tile_smem = known_tile_smem(k.chunks);
+  cudaError_t err = allow_smem((const void*)known_bin_scatter, scatter_smem);
   if (err != cudaSuccess) return (int)err;
-  rasterize_kernel<<<B, 1024, smem, stream>>>(
-      word, aux, start, origin, lane, occupancy, semantic, G, window, rows,
-      cols, half, rq, half_h, half_w, inv_res);
+  err = allow_smem((const void*)known_tile_load, tile_smem);
+  if (err != cudaSuccess) return (int)err;
+  known_bin_scatter<<<dim3(k.chunks, L), kKnownThreads, scatter_smem,
+                      stream>>>(bins, run_start, run_length, dropped, rows,
+                                origin, xyz, sem, counts, N, G,
+                                k.tiles_side, half, inv_half);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const bool aligned = G % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(word) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(aux) % 16 == 0;
+  known_tile_load<<<dim3(k.tiles, L), kKnownTileThreads, tile_smem,
+                    stream>>>(word, aux, bins, run_start, run_length, rows,
+                              G, k.tiles_side, k.chunks, aligned);
   return (int)cudaGetLastError();
 }
 
-extern "C" int mapper_known_load(
+// The first design, on rows the caller has cleared.
+extern "C" int mapper_known_load_v1(
     long long* word, int* aux, int* dropped, const int* rows,
     const int* origin, const float* xyz, const uint8_t* sem,
     const int* counts, int L, int N, int G, float half, float inv_half,

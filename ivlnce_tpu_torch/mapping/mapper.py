@@ -310,16 +310,16 @@ def mapper_step(
 def prepare_load(
     params: MapperParams,
     state: MapperState,
-    lanes,  # (L,) host ints: state rows to load
+    lanes,  # (L,) host ints: state rows to load, distinct
     center_xz,  # (L, 2) host array: world (x, z) each grid centres on
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Host half of a known-map load, in place: clear rows ``lanes``
-    (``dropped`` stays) and centre their grids on ``center_xz``. Returns
-    K3's ``rows`` (L,) and ``origin`` (L, 2) int32 on the state's device."""
+    """Host half of a known-map load, in place: centre the grids of rows
+    ``lanes`` on ``center_xz``. K3 overwrites those rows whole, their clear
+    included, so nothing here touches the grid. Returns K3's ``rows`` (L,)
+    and ``origin`` (L, 2) int32 on the state's device."""
     lanes = np.asarray(lanes, np.int64).reshape(-1)
-    keep = np.ones((state.batch_size,), bool)
-    keep[lanes] = False
-    clear_lanes(state, keep)
+    if len(np.unique(lanes)) != len(lanes):
+        raise ValueError(f"prepare_load: lanes {lanes.tolist()} repeat a row")
     center = _host(center_xz)
     origin = _grid_origins(center[:, 0], center[:, 1], params)
     state.origin[lanes] = origin
@@ -332,14 +332,15 @@ def prepare_load(
 def load_lanes(
     params: MapperParams,
     state: MapperState,
-    lanes,  # (L,) host ints: state rows to load
+    lanes,  # (L,) host ints: state rows to load, distinct
     xyz: torch.Tensor,  # (L, N, 3) float32 world points, on the state's device
     sem: torch.Tensor,  # (L, N) uint8
     counts: torch.Tensor,  # (L,) int32 points per cloud
     center_xz,  # (L, 2) host array: world (x, z) each grid centres on
 ) -> MapperState:
     """Preload known point clouds into state rows ``lanes``, in place:
-    ``prepare_load``, then K3 (``ops.scatter.known_load``)."""
+    ``prepare_load``, then K3 (``ops.scatter.known_load``), which clears
+    the rows as it loads them (``dropped`` stays)."""
     if not len(np.asarray(lanes).reshape(-1)):
         return state
     rows, origin = prepare_load(params, state, lanes, center_xz)

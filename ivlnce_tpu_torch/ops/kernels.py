@@ -83,16 +83,17 @@ def library() -> ctypes.CDLL:
     lib.mapper_accumulate_scratch_bytes.restype = ctypes.c_longlong
     lib.mapper_accumulate.argtypes = [p] * 10 + [i] * 4 + [f] * 5 + [p]
     lib.mapper_accumulate.restype = i
-    lib.mapper_accumulate_v1.argtypes = [p] * 9 + [i] * 4 + [f] * 5 + [p]
-    lib.mapper_accumulate_v1.restype = i
-    for name in ("mapper_rasterize", "mapper_rasterize_v1"):
-        getattr(lib, name).argtypes = [p] * 7 + [i] * 5 + [f] * 5 + [p]
-        getattr(lib, name).restype = i
+    lib.mapper_rasterize.argtypes = [p] * 7 + [i] * 5 + [f] * 5 + [p]
+    lib.mapper_rasterize.restype = i
     lib.mapper_rasterize_resident_clusters.argtypes = [
         i, i, ctypes.POINTER(ctypes.c_int)]
     lib.mapper_rasterize_resident_clusters.restype = i
-    lib.mapper_known_load.argtypes = [p] * 8 + [i] * 3 + [f] * 2 + [p]
+    lib.mapper_known_load_scratch_bytes.argtypes = [i] * 3
+    lib.mapper_known_load_scratch_bytes.restype = ctypes.c_longlong
+    lib.mapper_known_load.argtypes = [p] * 9 + [i] * 3 + [f] * 2 + [p]
     lib.mapper_known_load.restype = i
+    lib.mapper_known_load_v1.argtypes = [p] * 8 + [i] * 3 + [f] * 2 + [p]
+    lib.mapper_known_load_v1.restype = i
     lib.mapper_error_string.argtypes = [i]
     lib.mapper_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -106,46 +107,27 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
 
 
-# -- the first designs of K1 and K2, kept to time the current ones against --
-# Only measurement code calls these; the wrappers in ops/scatter.py launch
-# the current designs. ``v1_launches`` counts their launches, so a run can
-# show that its main path never reached them.
-v1_launches = {"accumulate": 0, "rasterize": 0}
+# -- the first design of K3, kept to time the current one against ----------
+# Only measurement code calls it; ``ops.scatter.known_load`` launches the
+# current design. ``v1_launches`` counts its launches, so a run can show
+# that its main path never reached it.
+v1_launches = {"known_load": 0}
 
 
-def _cuda_only(t: torch.Tensor, name: str) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: a kernel launch needs CUDA tensors, got "
-                         f"{t.device}")
-
-
-def accumulate_v1(word, aux, dropped, depth, semantics, lane_acc, origin,
-                  rays_x, rays_y, depth_min: float, depth_max: float,
-                  depth_scale: float, half_res: float) -> None:
-    """K1's first design (one global atomic per pixel, two passes over
-    the frame) on the same arguments as ``ops.scatter.accumulate``."""
+def known_load_v1(word, aux, dropped, rows, origin, xyz, sem, counts,
+                  half_res: float) -> None:
+    """K3's first design (one global atomic per point, then a second pass
+    over the cloud) on the same arguments as ``ops.scatter.known_load``.
+    It does not clear: the caller clears rows ``rows`` first, as
+    ``mapping.mapper.clear_lanes`` does."""
     from ivlnce_tpu_torch.ops import scatter as S
 
-    _cuda_only(depth, "accumulate_v1")
-    pointers, sizes, floats = S.accumulate_args(
-        word, aux, dropped, depth, semantics, lane_acc, origin, rays_x,
-        rays_y, depth_min, depth_max, depth_scale, half_res)
-    err = library().mapper_accumulate_v1(*pointers, *sizes, *floats,
-                                         S.stream_arg(depth.device))
-    v1_launches["accumulate"] += 1
-    check(err, "mapper_accumulate_v1")
-
-
-def rasterize_v1(word, aux, start, origin, lane_ras, window: int, dims,
-                 half_res: float):
-    """K2's first design (one block per lane) on the same arguments as
-    ``ops.scatter.rasterize``."""
-    from ivlnce_tpu_torch.ops import scatter as S
-
-    _cuda_only(word, "rasterize_v1")
-    occupancy, semantic, c_args = S.rasterize_args(
-        word, aux, start, origin, lane_ras, window, dims, half_res)
-    err = library().mapper_rasterize_v1(*c_args, S.stream_arg(word.device))
-    v1_launches["rasterize"] += 1
-    check(err, "mapper_rasterize_v1")
-    return occupancy, semantic
+    if word.device.type != "cuda":
+        raise ValueError(f"known_load_v1: a kernel launch needs CUDA "
+                         f"tensors, got {word.device}")
+    pointers, sizes, floats = S.known_load_args(
+        word, aux, dropped, rows, origin, xyz, sem, counts, half_res)
+    err = library().mapper_known_load_v1(*pointers, *sizes, *floats,
+                                         S.stream_arg(word.device))
+    v1_launches["known_load"] += 1
+    check(err, "mapper_known_load_v1")

@@ -222,18 +222,24 @@ def known_load_plain(
     counts: torch.Tensor,
     half_res: float,
 ) -> None:
-    """Load one known point cloud into each grid row ``rows[i]``, in place
-    (the JAX package's ``sorted_argmax_grid_update`` under
-    ``load_points_into_state``).
+    """Overwrite grid rows ``rows`` (distinct) with one known point cloud
+    each, in place (the JAX package's ``load_points_into_state``: its
+    ``clear_lanes``, then ``sorted_argmax_grid_update``).
 
-    Point j of cloud i counts when j < counts[i]. Its half-resolution cell
-    is ``round(z / h), round(x / h)`` less the row's ``origin[i]``; points
+    Each row is first cleared (word ``EMPTY_WORD``, payload 0). Point j of
+    cloud i counts when j < counts[i]. Its half-resolution cell is
+    ``round(z / h), round(x / h)`` less the row's ``origin[i]``; points
     off the grid add to ``dropped[rows[i]]``. A point takes its cell only
-    with a key strictly above the stored one, and among equal keys within
-    the load the lowest j wins (``_argmax_merge``). Other rows and points
-    are untouched."""
+    with a word above the empty one, so a height whose key is
+    ``EMPTY_KEY`` leaves the cell empty, and among equal keys the lowest j
+    wins (``_argmax_merge``). Other rows are untouched."""
     n = xyz.shape[1]
     g = word.shape[1]
+    rows = rows.to(torch.int64)
+    if torch.unique(rows).numel() != rows.numel():
+        raise ValueError(f"known_load: rows {rows.tolist()} repeat a row")
+    word[rows] = EMPTY_WORD
+    aux[rows] = 0
     j = torch.arange(n, device=xyz.device)
     valid = j[None, :] < counts[:, None]
     inv = G.f32_reciprocal(half_res)
@@ -242,7 +248,6 @@ def known_load_plain(
     r = r_abs - origin[:, 0:1]
     c = c_abs - origin[:, 1:2]
     inside = (r >= 0) & (r < g) & (c >= 0) & (c < g)
-    rows = rows.to(torch.int64)
     dropped.index_add_(0, rows, (valid & ~inside).sum(1, dtype=torch.int32))
     valid &= inside
     payload = pack_aux(xyz[:, :, 0], xyz[:, :, 2], sem, r_abs, c_abs,
@@ -485,12 +490,12 @@ def rasterize(
     return occupancy, semantic
 
 
-def known_load(
+def known_load_args(
     word, aux, dropped, rows, origin, xyz, sem, counts, half_res: float,
-) -> None:
-    """K3: load known point clouds into grid rows, in place (see
-    ``known_load_plain`` for the semantics). ``rows``, ``origin`` and
-    ``counts`` are per cloud; ``xyz`` is (L, N, 3)."""
+) -> tuple:
+    """K3's arguments checked, as the C arguments of a launch in three
+    parts: eight pointers; L, N, G; two floats. Each entry point takes its
+    own arguments between and after them."""
     l, n = sem.shape
     b, g = word.shape[0], word.shape[1]
     dev = word.device
@@ -502,7 +507,24 @@ def known_load(
     _check(xyz, "xyz", torch.float32, (l, n, 3), dev)
     _check(sem, "sem", torch.uint8, (l, n), dev)
     _check(counts, "counts", torch.int32, (l,), dev)
+    tensors = (word, aux, dropped, rows, origin, xyz, sem, counts)
+    f = ctypes.c_float
+    return (tuple(_ptr(t) for t in tensors), (l, n, g),
+            (f(half_res), f(G.f32_reciprocal(half_res))))
+
+
+def known_load(
+    word, aux, dropped, rows, origin, xyz, sem, counts, half_res: float,
+) -> None:
+    """K3: overwrite grid rows with known point clouds, in place, the
+    rows' clear included (see ``known_load_plain`` for the semantics).
+    ``rows``, ``origin`` and ``counts`` are per cloud; ``xyz`` is
+    (L, N, 3). The rows must be distinct; on CUDA tensors the kernel takes
+    that on trust, as reading ``rows`` would wait on the card."""
+    dev = word.device
     if dev.type == "cpu":
+        known_load_args(word, aux, dropped, rows, origin, xyz, sem, counts,
+                        half_res)
         known_load_plain(word, aux, dropped, rows, origin, xyz, sem, counts,
                          half_res)
         return
@@ -510,12 +532,13 @@ def known_load(
         raise ValueError(f"known_load: unsupported device {dev}")
     from ivlnce_tpu_torch.ops import kernels
 
+    pointers, sizes, floats = known_load_args(
+        word, aux, dropped, rows, origin, xyz, sem, counts, half_res)
     lib = kernels.library()
-    f = ctypes.c_float
-    err = lib.mapper_known_load(
-        _ptr(word), _ptr(aux), _ptr(dropped), _ptr(rows), _ptr(origin),
-        _ptr(xyz), _ptr(sem), _ptr(counts), l, n, g,
-        f(half_res), f(G.f32_reciprocal(half_res)), stream_arg(dev),
-    )
+    # each chunk's records sorted by tile, and each tile's run per chunk
+    scratch = torch.empty(lib.mapper_known_load_scratch_bytes(*sizes),
+                          dtype=torch.uint8, device=dev)
+    err = lib.mapper_known_load(*pointers, _ptr(scratch), *sizes, *floats,
+                                stream_arg(dev))
     launches.known_load += 1
     kernels.check(err, "mapper_known_load")

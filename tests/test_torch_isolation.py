@@ -164,19 +164,21 @@ def test_wrappers_check_their_arguments(rng):
 
 
 def test_first_design_launchers_take_no_cpu_tensors(rng):
-    """The first designs of K1 and K2 have no plain path of their own: on
-    CPU tensors they raise before anything is built."""
-    params, state, inp, consts = _small_step(rng)
+    """The first design of K3 has no plain path of its own: on CPU tensors
+    it raises before anything is built."""
+    from ivlnce_tpu_torch.mapping import mapper as M
+
+    state = M.init_state(2, 16, "cpu")
+    xyz = torch.from_numpy(rng.uniform(-0.5, 0.5, (1, 8, 3)).astype(
+        np.float32))
     with pytest.raises(ValueError, match="needs CUDA tensors"):
-        kernels.accumulate_v1(state.word, state.aux, state.dropped,
-                              inp.depth, inp.semantics, inp.lane_acc,
-                              inp.origin, inp.rays_x, inp.rays_y, *consts)
-    with pytest.raises(ValueError, match="needs CUDA tensors"):
-        kernels.rasterize_v1(state.word, state.aux, inp.start, inp.origin,
-                             inp.lane_ras, params.window_cells,
-                             params.map_dims, params.half_res)
+        kernels.known_load_v1(state.word, state.aux, state.dropped,
+                              torch.tensor([1], dtype=torch.int32),
+                              torch.tensor([[-8, -8]], dtype=torch.int32),
+                              xyz, torch.zeros(1, 8, dtype=torch.uint8),
+                              torch.tensor([8], dtype=torch.int32), 0.05)
     assert kernels._lib is None
-    assert kernels.v1_launches == {"accumulate": 0, "rasterize": 0}
+    assert kernels.v1_launches == {"known_load": 0}
 
 
 def test_kernel_build_needs_nvcc_and_happens_only_when_called():

@@ -18,11 +18,14 @@ import numpy as np
 import pytest
 import torch
 
+from ivlnce_tpu_torch.mapping import clouds
 from ivlnce_tpu_torch.mapping import mapper as M
 from ivlnce_tpu_torch.mapping.camera import CameraParameters
 from ivlnce_tpu_torch.ops import scatter as S
 
 pytestmark = pytest.mark.cuda
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture
@@ -133,21 +136,10 @@ def test_known_load_equals_plain_version(card):
     assert S.launches.known_load == before + 2
 
 
-def _design(name):
-    """The K1 and K2 launchers of a design: the wrappers' current one, or
-    the first (one global atomic per pixel, one block per lane)."""
-    from ivlnce_tpu_torch.ops import kernels
-
-    if name == "current":
-        return S.accumulate, S.rasterize
-    return kernels.accumulate_v1, kernels.rasterize_v1
-
-
-def _equal_plain_over(card, params, batch, frames, design):
-    """Each step of ``frames`` through a design's K1 and K2 and through
-    the plain versions: grids, drop counts and maps exactly equal. Returns
-    the drop counts."""
-    acc, ras = _design(design)
+def _equal_plain_over(card, params, batch, frames):
+    """Each step of ``frames`` through K1 and K2 and through the plain
+    versions: grids, drop counts and maps exactly equal. Returns the drop
+    counts."""
     kern = M.init_state(batch, params.grid_cells, card)
     plain = M.init_state(batch, params.grid_cells, card)
     consts = (M.FRAME_DEPTH_MIN, M.FRAME_DEPTH_MAX, M.DEPTH_SCALE_METERS,
@@ -158,13 +150,14 @@ def _equal_plain_over(card, params, batch, frames, design):
         s = torch.from_numpy(sem).to(card)
         ik = M.step_inputs(params, kern, d, s, pose, orient, None, masks)
         ip = M.step_inputs(params, plain, d, s, pose, orient, None, masks)
-        acc(kern.word, kern.aux, kern.dropped, ik.depth, ik.semantics,
-            ik.lane_acc, ik.origin, ik.rays_x, ik.rays_y, *consts)
+        S.accumulate(kern.word, kern.aux, kern.dropped, ik.depth,
+                     ik.semantics, ik.lane_acc, ik.origin, ik.rays_x,
+                     ik.rays_y, *consts)
         S.accumulate_plain(plain.word, plain.aux, plain.dropped, ip.depth,
                            ip.semantics, ip.lane_acc, ip.origin, ip.rays_x,
                            ip.rays_y, *consts)
-        occ_k, sem_k = ras(kern.word, kern.aux, ik.start, ik.origin,
-                           ik.lane_ras, *rargs)
+        occ_k, sem_k = S.rasterize(kern.word, kern.aux, ik.start, ik.origin,
+                                   ik.lane_ras, *rargs)
         occ_p, sem_p = S.rasterize_plain(plain.word, plain.aux, ip.start,
                                          ip.origin, ip.lane_ras, *rargs)
         torch.cuda.synchronize()
@@ -185,11 +178,9 @@ TIE_CASES = [
 ]
 
 
-@pytest.mark.parametrize("design", ["current", "v1"])
 @pytest.mark.parametrize("batch,hw,grid,window,empty,edge", TIE_CASES)
-def test_kernels_equal_plain_versions_on_tie_frames(card, design, batch, hw,
-                                                    grid, window, empty,
-                                                    edge):
+def test_kernels_equal_plain_versions_on_tie_frames(card, batch, hw, grid,
+                                                    window, empty, edge):
     from ivlnce_tpu_torch.mapping import walks
 
     params = M.MapperParams(CameraParameters(math.radians(90.0), (hw, hw),
@@ -197,22 +188,72 @@ def test_kernels_equal_plain_versions_on_tie_frames(card, design, batch, hw,
                             grid_cells=grid, window_cells=window)
     frames = walks.tie_walk(batch, hw, 10, seed=batch, edge_step=edge,
                             empty_lanes=empty)
-    dropped = _equal_plain_over(card, params, batch, frames, design)
+    dropped = _equal_plain_over(card, params, batch, frames)
     assert int(dropped[0]) > 0
 
 
-@pytest.mark.parametrize("design", ["current", "v1"])
 @pytest.mark.parametrize("batch", [1, 3])
-def test_kernels_equal_plain_versions_on_fakesim_frames(card, design,
-                                                        batch):
+def test_kernels_equal_plain_versions_on_fakesim_frames(card, batch):
     from ivlnce_tpu_torch.mapping import walks
 
     params = M.MapperParams(CameraParameters(math.radians(90.0), (256, 256),
                                              0.1), 6.4, 6.4, 0.1,
                             grid_cells=1024, window_cells=192)
     frames = walks.fakesim_walk(batch, 256, 8, seed=batch)
-    _equal_plain_over(card, params, batch, frames, design)
+    _equal_plain_over(card, params, batch, frames)
 
+
+def _known_loads_equal_plain(card, grid, batch, loads):
+    """Each load through ``load_lanes`` (K3) and through the same host
+    steps with K3's plain version, on the card: word, aux and dropped
+    exactly equal after every load. Returns the kernel's state."""
+    params = M.MapperParams(CameraParameters(1.2, (16, 16), 0.1), 6.4, 6.4,
+                            0.1, grid_cells=grid,
+                            window_cells=min(96, grid))
+    kern = M.init_state(batch, grid, card)
+    plain = M.init_state(batch, grid, card)
+    before = S.launches.known_load
+    for t, load in enumerate(loads):
+        args = (torch.from_numpy(load.xyz).to(card),
+                torch.from_numpy(load.sem).to(card),
+                torch.from_numpy(load.counts).to(card))
+        M.load_lanes(params, kern, load.lanes, *args, load.centers)
+        rows, origin = M.prepare_load(params, plain, load.lanes, load.centers)
+        S.known_load_plain(plain.word, plain.aux, plain.dropped, rows,
+                           origin, *args, params.half_res)
+        torch.cuda.synchronize()
+        assert torch.equal(kern.word, plain.word), t
+        assert torch.equal(kern.aux, plain.aux), t
+        assert torch.equal(kern.dropped, plain.dropped), t
+    assert S.launches.known_load == before + len(loads)
+    return kern
+
+
+EDGE_CASES = list(clouds.edge_cases())
+
+
+@pytest.mark.parametrize("case", EDGE_CASES, ids=[c.name for c in EDGE_CASES])
+def test_known_load_equals_plain_version_on_edge_cases(card, case):
+    """K3 on the edge cases of its tiled design (``mapping/clouds.py``),
+    each load into rows a first load filled."""
+    kern = _known_loads_equal_plain(card, case.grid, case.batch, case.loads)
+    last = case.loads[-1]
+    rows = torch.as_tensor(last.lanes, device=card)
+    stored = (kern.word[rows] != S.EMPTY_WORD).sum()
+    if case.name in ("a lane with counts 0", "all points off the grid"):
+        assert int((kern.word[0] != S.EMPTY_WORD).sum()) == 0
+    elif case.name == "all points in one cell":
+        assert int(stored) == 1
+    else:
+        assert int(stored) > 0
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+def test_known_load_equals_plain_version_on_val_seen_clouds(card, lanes):
+    """K3 at the known-map evaluation's size: the fake val_seen scenes'
+    clouds into 1 or 3 rows of G=1024, twice (the second a reload)."""
+    load = clouds.val_seen_clouds(REPO, lanes)
+    _known_loads_equal_plain(card, 1024, lanes, (load, load))
 
 
 def test_chip_smoke_times_the_card_not_the_host(card):

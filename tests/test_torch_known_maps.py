@@ -21,6 +21,7 @@ import ivlnce_tpu.mapping.obs_transforms as JOT
 from ivlnce_tpu.mapping import mapper as JM
 from ivlnce_tpu.mapping.camera import CameraParameters as JCamera
 from ivlnce_tpu.ops.geometry import MapDims as JDims
+from ivlnce_tpu_torch.mapping import clouds as TC
 from ivlnce_tpu_torch.mapping import mapper as TM
 from ivlnce_tpu_torch.mapping import obs_transforms as TOT
 from ivlnce_tpu_torch.mapping.camera import CameraParameters as TCamera
@@ -127,6 +128,40 @@ def test_load_points_matches_jax(centred):
         assert_states_equal(ts, js, f"load {t}")
     assert int(ts.dropped.sum()) > 0
     assert int((ts.key() != TS.EMPTY_KEY).sum()) > 1000
+
+
+EDGE_CASES = list(TC.edge_cases())
+
+
+@pytest.mark.parametrize("case", EDGE_CASES, ids=[c.name for c in EDGE_CASES])
+def test_reloading_stale_rows_matches_jax(case):
+    """K3's edge cases (``mapping/clouds.py``: a lane with counts 0, one
+    cell, all off the grid, one tile, ragged grids, rows 0 and 2 of 3, N
+    off the block size, a row loaded twice, EMPTY_KEY heights), each load
+    into rows a first load filled, through both packages'
+    ``load_points_into_state``: the port's load clears what it loads, as
+    the JAX function does."""
+    jp, tp = make_params(grid=case.grid, window=min(96, case.grid))
+    b = case.batch
+    js = JM.init_state(b, jp.grid_cells, jp.list_capacity)
+    ts = TM.init_state(b, tp.grid_cells, "cpu")
+    pose = np.zeros((b, 3), np.float32)
+    for t, load in enumerate(case.loads):
+        n = load.xyz.shape[1]
+        mask = np.zeros(b, bool)
+        mask[load.lanes] = True
+        xyz = np.zeros((b, n, 3), np.float32)
+        sem = np.zeros((b, n), np.uint8)
+        counts = np.zeros(b, np.int32)
+        center = np.zeros((b, 2), np.float32)
+        xyz[load.lanes], sem[load.lanes] = load.xyz, load.sem
+        counts[load.lanes], center[load.lanes] = load.counts, load.centers
+        js = JM.load_points_into_state(jp, js, mask, xyz, sem, counts, pose,
+                                       scene_center=center)
+        TM.load_points_into_state(tp, ts, mask, torch.from_numpy(xyz),
+                                  torch.from_numpy(sem), counts, pose,
+                                  scene_center=center)
+        assert_states_equal(ts, js, f"{case.name}, load {t}")
 
 
 def test_known_load_wrapper_takes_the_plain_version_on_cpu():
