@@ -24,8 +24,12 @@ Phases (any failure ends the run with a nonzero exit):
    peak memory, and two bounds;
 5. full-width steps on the card against the same steps on the CPU (plain
    versions): a mapper + MapCMA step (maps equal, logits and RNN states
-   close), a known-map preload and three steps (maps equal), and a RedNet
-   step at 256^2 (logits close; maps equal with the labels fed equal);
+   close), a known-map preload and three steps (maps equal), a RedNet
+   step at 256^2 (logits close; maps equal with the labels fed equal),
+   three LatentCMA steps of each tour-memory variant (224^2 RGB, 256^2
+   depth, random BatchNorm statistics, a tour boundary at step 2) and an
+   RxR encode of 512 x 768 features (logits, RNN states and features
+   close);
 6. the port's iterative MapCMA evaluation through its entry point
    (``ivlnce_tpu_torch.run.run_exp``) at full width
    (configs/fake/map_cma_eval_iterative.yaml, seeded random weights),
@@ -38,7 +42,19 @@ Phases (any failure ends the run with a nonzero exit):
 8. the known-map evaluation (configs/fake/map_cma_eval_known.yaml, K3 and
    K2) through ``run_exp`` at full width;
 9. the predicted-semantics evaluation (PredictedSemanticsIterativeMapper:
-   RedNet, K1 and K2) through ``run_exp``, then traced as in phase 7.
+   RedNet, K1 and K2) through ``run_exp``, then traced as in phase 7;
+10. the four LatentCMA tour baselines (plain, tour_memory,
+   tour_memory_variant, and with memory_at_end) through ``run_exp`` and
+   ``iterative_dagger``, with no mapper: K1, K2 and K3 never launch (the
+   three that phase 11 does not trace walk one tour per lane, to keep
+   the script near half its time limit);
+11. the memory_at_end baseline traced as in phase 7, with the RGB
+   encoder's own range, against a float32 bound of its two ResNet-50s;
+12. the episodic evaluations through ``run_exp``: MapCMA with the
+   GT-semantics mapper (configs/fake/map_cma_eval_episodic.yaml: K1 and
+   K2, every lane's grid cleared at every episode start) and LatentCMA on
+   RxR's precomputed features (configs/fake/rxr_eval.yaml: the
+   instruction encoder runs once per episode change, not per step).
 
 Prints the kernels as one JSON line and, last, the device as JSON.
 Imports nothing of JAX.
@@ -63,6 +79,22 @@ import torch
 
 CONFIG = "configs/fake/map_cma_eval_iterative.yaml"
 KNOWN_CONFIG = "configs/fake/map_cma_eval_known.yaml"
+EPISODIC_CONFIG = "configs/fake/map_cma_eval_episodic.yaml"
+RXR_CONFIG = "configs/fake/rxr_eval.yaml"
+# the latent baselines' evaluations
+# (ivlnce_baselines/config/latent_baselines/*/1_eval.yaml) on the fake
+# tour dataset: LatentCMA, no mapper transform, the iterative trainer
+LATENT_OPTS = ("MODEL.policy_name", "LatentCMAPolicy",
+               "RL.POLICY.OBS_TRANSFORMS.ENABLED_TRANSFORMS", "[]",
+               "TRAINER_NAME", "iterative_dagger")
+LATENT_VARIANTS = {  # flags, recurrent layers
+    "1_cma": ((), 2),
+    "2_tour_cma": (("MODEL.tour_memory", "True"), 2),
+    "3_pool_cma": (("MODEL.tour_memory_variant", "True"), 3),
+    "4_pool_end_cma": (("MODEL.tour_memory_variant", "True",
+                        "MODEL.memory_at_end", "True"), 3),
+}
+KERNELS = ("accumulate", "rasterize", "known_load")
 PREDICTED_OPTS = ["RL.POLICY.OBS_TRANSFORMS.ENABLED_TRANSFORMS",
                   "['PredictedSemanticsIterativeMapper']"]
 KNOWN_POINTS = 2 ** 18  # TPU.known_map_max_points
@@ -71,6 +103,10 @@ FP32_FLOPS = 67e12  # H100 SXM, outside the tensor cores
 # weights seed: seed 3's random policy walks forward from the first
 # step, so episodes run and maps grow (seed 0's stops at once)
 SEED = 3
+# the RxR policy's: its random policy walks each episode's 30 steps
+# (seed 3's stops after one or two, too few to tell an instruction
+# encode per episode from one per step)
+RXR_SEED = 1
 
 
 def card_line() -> str:
@@ -398,18 +434,32 @@ def trace_kernels(fn) -> dict:
     return durs
 
 
+def complete_trace(fn, names, launches: int, attempts: int = 3) -> dict:
+    """``trace_kernels(fn)`` holding ``launches`` launches of each kernel
+    whose name holds one of ``names``. The tracer has been seen to miss a
+    few launches of a call (3 of 12 K1 and 2 of 12 K2 launches of a B=3
+    walk, once), so an incomplete trace is taken again with a fresh call,
+    up to ``attempts`` times; ``fn`` must give the same launches each
+    call."""
+    for _ in range(attempts):
+        traced = trace_kernels(fn)
+        counts = {n: sum(len(v) for name, v in traced.items() if n in name)
+                  for n in names}
+        print(f"    traced launches {counts}, expected {launches} of each")
+        if all(c == launches for c in counts.values()):
+            return traced
+    raise SystemExit(f"no complete trace in {attempts} attempts")
+
+
 def traced_kernel_ms(fn, names, launches: int) -> dict:
     """Median device ms per launch of each kernel whose name holds one of
     ``names``, over one call of ``fn`` traced by ``torch.profiler``, which
     must launch each ``launches`` times."""
     durs = defaultdict(list)
-    for name, v in trace_kernels(fn).items():
+    for name, v in complete_trace(fn, names, launches).items():
         for n in names:
             if n in name:
                 durs[n] += v
-    if any(len(durs[n]) != launches for n in names):
-        raise SystemExit(f"traced {dict((n, len(durs[n])) for n in names)} "
-                         f"launches, expected {launches} of each")
     return {n: float(np.median(durs[n])) for n in names}
 
 
@@ -486,10 +536,11 @@ def time_walk(card: str, label: str, frames: list, yardstick: bool) -> dict:
                              f"at step {t} of the {label}")
     del states
 
-    # each kernel apart, over a replay of the walk
-    replay = {"current": M.init_state(b, params.grid_cells, dev)}
+    # each kernel apart, over a replay of the walk from empty grids
+    replay = {}
 
     def run():
+        replay["current"] = M.init_state(b, params.grid_cells, dev)
         for f in frames:
             ops = _step_ops(params, replay, f)
             ops["current"][1]()
@@ -823,14 +874,12 @@ def time_known_load(card: str, label: str, params, load) -> dict:
     reps = 5
     passes = traced_kernel_ms(lambda: [ops["ms"]() for _ in range(reps)],
                               KERNEL_NAMES["known_load"], reps)
-    old_durs = trace_kernels(lambda: [ops["old_ms"]() for _ in range(reps)])
+    old_durs = complete_trace(lambda: [ops["old_ms"]() for _ in range(reps)],
+                              KNOWN_V1_NAMES, reps)
     old_passes = {}
     for n_ in KNOWN_V1_NAMES:
-        v = [d for name, ds in old_durs.items() if n_ in name for d in ds]
-        if len(v) != reps:
-            raise SystemExit(f"traced {len(v)} launches of {n_}, expected "
-                             f"{reps}")
-        old_passes[n_] = float(np.median(v))
+        old_passes[n_] = float(np.median(
+            [d for name, ds in old_durs.items() if n_ in name for d in ds]))
     old_passes["clear (summed)"] = sum(
         d for name, ds in old_durs.items()
         if not any(n_ in name for n_ in KNOWN_V1_NAMES) for d in ds) / reps
@@ -956,6 +1005,126 @@ def phase_reference(card: str) -> dict:
     if worst["maps"] != 0 or worst["logits"] > 1e-4 or worst["rnn"] > 1e-4:
         raise SystemExit("the card's step disagrees with the CPU's")
     return worst
+
+
+def randomize_norm_statistics(policy) -> None:
+    """BatchNorm statistics and affines far from a fresh init's (mean 0,
+    var 1, scale 1, bias 0), from torch's global generator."""
+    with torch.no_grad():
+        for mod in policy.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                mod.running_mean.normal_(0.0, 0.2)
+                mod.running_var.uniform_(0.5, 2.0)
+                mod.weight.uniform_(0.5, 1.5)
+                mod.bias.normal_(0.0, 0.1)
+
+
+def latent_config(flags=()):
+    from ivlnce_tpu_torch.config import get_config
+
+    return get_config(CONFIG, list(LATENT_OPTS) + list(flags))
+
+
+def seeded_latent_policy(config, seed=SEED):
+    """The LatentCMA policy at the config's widths, weights and BatchNorm
+    statistics from ``seed``."""
+    from ivlnce_tpu_torch.models.policy import LatentCMAPolicy
+
+    info = {"depth_hw": config.TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.HEIGHT,
+            "map_hw": 0}
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        policy = LatentCMAPolicy.from_config(config, info)
+        randomize_norm_statistics(policy)
+    return policy
+
+
+def phase_latent_reference(card: str) -> dict:
+    """Three full-width LatentCMA steps of each tour-memory variant on the
+    card and on the CPU from the same inputs (224^2 RGB, 256^2 depth, R2R
+    tokens, hidden 512): lane 0 ends its tour after step 1, so step 2
+    clears its memory slot. Logits and RNN states agree to 1e-4 (float32
+    on both sides, TF32 off)."""
+    b = 2
+    rng = np.random.default_rng(SEED)
+    tokens = np.zeros((b, 200), np.int64)
+    tokens[:, :24] = rng.integers(1, 32, (b, 24))
+    frames = [(rng.uniform(0, 1, (b, 256, 256, 1)).astype(np.float32),
+               rng.integers(0, 256, (b, 224, 224, 3)).astype(np.uint8))
+              for _ in range(3)]
+    lane0_tour = ([0, 0], [0, 1], [1, 1])  # (lane 0, lane 1) per step
+    out = {}
+    for variant, (flags, layers) in LATENT_VARIANTS.items():
+        config = latent_config(flags)
+        cpu_policy = seeded_latent_policy(config).eval()
+        gpu_policy = seeded_latent_policy(config).cuda().eval()
+        if cpu_policy.num_recurrent_layers != layers:
+            raise SystemExit(f"{variant}: {cpu_policy.num_recurrent_layers} "
+                             f"recurrent layers, not {layers}")
+        sides = {}
+        for dev, policy in (("cpu", cpu_policy), ("cuda", gpu_policy)):
+            rnn = policy.initial_rnn_states(b, dev)
+            prev = torch.zeros(b, 1, dtype=torch.int64, device=dev)
+            outs = []
+            for (depth, rgb), m in zip(frames, lane0_tour):
+                obs = {"instruction": torch.from_numpy(tokens).to(dev),
+                       "depth": torch.from_numpy(depth).to(dev),
+                       "rgb": torch.from_numpy(rgb).to(dev)}
+                mask = torch.tensor(m, dtype=torch.float32,
+                                    device=dev).reshape(b, 1)
+                with torch.no_grad():
+                    step = policy.act_iterative(obs, rnn, prev, mask, mask,
+                                                mask, torch.ones_like(mask))
+                rnn, prev = step.rnn_states, step.actions
+                outs.append([x.cpu() for x in (step.logits, step.rnn_states)])
+            sides[dev] = outs
+        worst = {
+            "logits": _max_abs((c[0], g[0]) for c, g in zip(sides["cpu"],
+                                                            sides["cuda"])),
+            "rnn": _max_abs((c[1], g[1]) for c, g in zip(sides["cpu"],
+                                                         sides["cuda"])),
+            "largest_logit": max(float(c[0].abs().max())
+                                 for c in sides["cpu"]),
+        }
+        worst["logits_over_largest"] = worst["logits"] / worst["largest_logit"]
+        print(f"  LatentCMA {variant} ({layers} recurrent layers), 3 steps "
+              f"card vs CPU [{card}]: {worst}")
+        if worst["logits"] > 1e-4 or worst["rnn"] > 1e-4:
+            raise SystemExit(f"the card's LatentCMA {variant} steps "
+                             "disagree with the CPU's")
+        out[variant] = worst
+    return out
+
+
+def phase_rxr_reference(card: str) -> float:
+    """The RxR instruction encoder (no embedding, a 768-wide bi-LSTM
+    input) on 512 x 768 features of two lanes with ragged lengths, on the
+    card and on the CPU: features agree to 1e-4."""
+    from ivlnce_tpu_torch.config import get_config
+    from ivlnce_tpu_torch.models.instruction_encoder import InstructionEncoder
+
+    # per-token features, as the CMA nets force them
+    config = get_config(RXR_CONFIG, [
+        "MODEL.INSTRUCTION_ENCODER.final_state_only", "False",
+    ]).MODEL.INSTRUCTION_ENCODER
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        cpu_enc = InstructionEncoder(config).eval()
+    gpu_enc = InstructionEncoder(config).cuda().eval()
+    gpu_enc.load_state_dict(cpu_enc.state_dict())
+    rng = np.random.default_rng(SEED)
+    feats = rng.normal(0, 1, (2, 512, 768)).astype(np.float32)
+    feats[0, 300:] = 0
+    feats[1, 97:] = 0
+    with torch.no_grad():
+        ref = cpu_enc({"rxr_instruction": torch.from_numpy(feats)})
+        got = gpu_enc({"rxr_instruction": torch.from_numpy(feats).cuda()})
+    err = _max_abs([(ref, got.cpu())])
+    print(f"  RxR encode (2, 512, 768) card vs CPU [{card}]: features "
+          f"{tuple(got.shape)}, max abs diff {err}")
+    if err > 1e-4 or tuple(got.shape) != (2, 2 * config.hidden_size, 512):
+        raise SystemExit("the card's RxR encode disagrees with the CPU's")
+    return err
 
 
 def phase_known_reference(card: str) -> int:
@@ -1112,16 +1281,84 @@ def eval_opts(tmp: str, run: str, ckpt: str, extra=()) -> list:
 
 
 # the evaluations chip_smoke drives: config, extra options, and the
-# kernels each must launch (K1 must not run where no frame accumulates)
+# kernels each must launch and must not launch (K1 must not run where no
+# frame accumulates; no mapper kernel where no mapper runs)
 PATHS = {
     "iterative": (CONFIG, (), ("accumulate", "rasterize"), ("known_load",)),
     "known": (KNOWN_CONFIG, (), ("known_load", "rasterize"), ("accumulate",)),
     "predicted": (CONFIG, tuple(PREDICTED_OPTS), ("accumulate", "rasterize"),
                   ("known_load",)),
+    **{f"latent_{v}": (CONFIG, LATENT_OPTS + flags, (), KERNELS)
+       for v, (flags, _) in LATENT_VARIANTS.items()},
+    "map_episodic": (EPISODIC_CONFIG, (), ("accumulate", "rasterize"),
+                     ("known_load",)),
+    # both languages of the fake RxR split: two episodes per lane (its two
+    # scenes, so two lanes)
+    "rxr": (RXR_CONFIG, ("NUM_ENVIRONMENTS", "2", "EVAL.LANGUAGES", "['*']"),
+            (), KERNELS),
 }
+EPISODIC_PATHS = ("map_episodic", "rxr")
 
 
-def phase_end_to_end(card: str, tmp: str, ckpt: str, path: str) -> dict:
+def _restart_recorder():
+    """Wrap the trainer's policy step and the mapper's lane clear so a run
+    records, per policy step, which live lanes began an episode (reset
+    mask 0) and whether each one's grid rows were cleared. Returns the
+    record and a function that undoes the wrapping."""
+    from ivlnce_tpu_torch.mapping import mapper as M
+    from ivlnce_tpu_torch.trainers.base_trainer import BaseVLNCETrainer
+
+    record = {"starts": 0, "missed": 0, "cleared": set()}
+    policy_step, clear_lanes = BaseVLNCETrainer._policy_step, M.clear_lanes
+
+    def clearing(state, keep_mask):
+        keep = np.asarray(keep_mask, bool).reshape(-1)
+        record["cleared"] |= set(np.flatnonzero(~keep).tolist())
+        return clear_lanes(state, keep_mask)
+
+    def stepped(self, batch, reset_masks, *args, **kwargs):
+        record["cleared"] = set()
+        out = policy_step(self, batch, reset_masks, *args, **kwargs)
+        starts = self._lane_rows[np.asarray(reset_masks).reshape(-1) == 0]
+        record["starts"] += len(starts)
+        record["missed"] += len(set(starts.tolist()) - record["cleared"])
+        return out
+
+    BaseVLNCETrainer._policy_step, M.clear_lanes = stepped, clearing
+
+    def undo():
+        BaseVLNCETrainer._policy_step, M.clear_lanes = policy_step, clear_lanes
+    return record, undo
+
+
+def one_tour_per_lane(tmp: str) -> tuple:
+    """Options that cut the val_seen split to the first tour of each scene
+    (one per lane), with the tour-nDTW ground truth of those tours under
+    their new numbers (a tour's id is its place in the tours file)."""
+    from ivlnce_tpu_torch.config import get_config
+
+    config = get_config(CONFIG)
+    split = config.EVAL.SPLIT
+    with open(config.TASK_CONFIG.DATASET.TOURS_FILE) as f:
+        tours = json.load(f)
+    with open(config.EVAL.ITERATIVE_GT_PATHS) as f:
+        gt = json.load(f)
+    kept, kept_gt, first = {}, {}, 0
+    for scene, scene_tours in tours[split].items():
+        kept[scene] = scene_tours[:1]
+        kept_gt[str(len(kept_gt))] = gt[split][str(first)]
+        first += len(scene_tours)
+    paths = (os.path.join(tmp, "one_tour_per_lane.json"),
+             os.path.join(tmp, "one_tour_per_lane_gt.json"))
+    for path, data in zip(paths, ({split: kept}, {split: kept_gt})):
+        with open(path, "w") as f:
+            json.dump(data, f)
+    return ("TASK_CONFIG.DATASET.TOURS_FILE", paths[0],
+            "EVAL.ITERATIVE_GT_PATHS", paths[1])
+
+
+def phase_end_to_end(card: str, tmp: str, ckpt: str, path: str,
+                     extra_opts=()) -> dict:
     """``run_exp`` eval of one path on the card, the launch counters set
     to 0 just before and read just after."""
     from ivlnce_tpu_torch.ops import kernels
@@ -1129,46 +1366,41 @@ def phase_end_to_end(card: str, tmp: str, ckpt: str, path: str) -> dict:
     from ivlnce_tpu_torch.run import run_exp
 
     config, extra, needed, absent = PATHS[path]
+    episodic = path in EPISODIC_PATHS
     results = os.path.join(tmp, path, "results")
-    opts = eval_opts(tmp, path, ckpt, extra)
+    opts = eval_opts(tmp, path, ckpt, tuple(extra) + tuple(extra_opts))
+    restarts, undo = (_restart_recorder() if episodic else (None, None))
     torch.cuda.reset_peak_memory_stats()
     S.launches.reset()
     v1_before = dict(kernels.v1_launches)
     t0 = time.perf_counter()
-    trainer = run_exp(config, "eval", opts, device="cuda")
+    try:
+        trainer = run_exp(config, "eval", opts, device="cuda")
+    finally:
+        if undo is not None:
+            undo()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"accumulate": S.launches.accumulate,
-                "rasterize": S.launches.rasterize,
-                "known_load": S.launches.known_load}
+    launches = {k: getattr(S.launches, k) for k in KERNELS}
     if kernels.v1_launches != v1_before:
         raise SystemExit(f"the {path} path launched K3's first design")
 
+    prefix = "" if episodic else "iterative_"
     with open(os.path.join(results,
-                           "iterative_stats_ckpt_0_val_seen.json")) as f:
+                           f"{prefix}stats_ckpt_0_val_seen.json")) as f:
         stats = json.load(f)
-    with open(os.path.join(results,
-                           "iterative_all_stats_ckpt_0_val_seen.json")) as f:
-        per_tour = json.load(f)
-    if not glob.glob(os.path.join(results, "dtw_data_ckpt_0_*.json")):
-        raise SystemExit("no dtw data written")
-    if "tndtw" not in stats:
-        raise SystemExit("no t-nDTW in the stats")
     bad = {k: v for k, v in stats.items() if not math.isfinite(v)}
-    if bad:
-        raise SystemExit(f"non-finite stats: {bad}")
-    tours_crossed = sum(1 for eps in per_tour.values() if len(eps) >= 2)
-    if tours_crossed < 3:
-        raise SystemExit(f"only {tours_crossed} tours crossed an episode "
-                         "boundary")
-    mapper = trainer.obs_transforms[0]
-    steps = launches["rasterize"]  # one per policy step
+    if bad or not stats:
+        raise SystemExit(f"non-finite or no stats: {stats}")
+    steps = trainer.policy_steps
     summary = {
         "card": card,
         "path": path,
-        "transform": type(mapper).__name__,
-        "lanes": 3,
-        "episodes": sum(len(v) for v in per_tour.values()),
+        "transform": (type(trainer.obs_transforms[0]).__name__
+                      if trainer.obs_transforms else None),
+        "policy": type(trainer.policy).__name__,
+        "recurrent_layers": trainer.policy.num_recurrent_layers,
+        "lanes": trainer._num_rows,
         "policy_steps": steps,
         "env_steps": trainer.env_steps,
         "eval_seconds": trainer.eval_seconds,
@@ -1177,32 +1409,77 @@ def phase_end_to_end(card: str, tmp: str, ckpt: str, path: str) -> dict:
         "wall_ms_per_step": trainer.eval_seconds * 1e3 / max(steps, 1),
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "launches": launches,
-        "scene_loads": mapper.known_map_loads,
-        "occupied_cells": int((mapper.state.word != S.EMPTY_WORD).sum()),
-        "dropped_points": mapper.dropped_point_count(),
+        "instruction_encodes": trainer.instruction_encodes,
         "stats": stats,
     }
-    print(f"  [{card}] {path}: {summary['episodes']} episodes, "
-          f"{trainer.env_steps} env steps in {trainer.eval_seconds:.2f} s: "
+    if not episodic:
+        with open(os.path.join(
+                results, "iterative_all_stats_ckpt_0_val_seen.json")) as f:
+            per_tour = json.load(f)
+        if not glob.glob(os.path.join(results, "dtw_data_ckpt_0_*.json")):
+            raise SystemExit("no dtw data written")
+        if "tndtw" not in stats:
+            raise SystemExit("no t-nDTW in the stats")
+        tours_crossed = sum(1 for eps in per_tour.values() if len(eps) >= 2)
+        if tours_crossed < 3:
+            raise SystemExit(f"only {tours_crossed} tours crossed an "
+                             "episode boundary")
+        summary["episodes"] = sum(len(v) for v in per_tour.values())
+        summary["tours_crossed"] = tours_crossed
+    print(f"  [{card}] {path}: {trainer.env_steps} env steps in "
+          f"{trainer.eval_seconds:.2f} s: "
           f"{summary['env_steps_per_s']:.2f} env steps/s, {steps} policy "
           f"steps, wall ms per policy step "
-          f"{summary['wall_ms_per_step']:.4f}")
-    print(f"  launches: {launches}; scene loads {summary['scene_loads']}; "
-          f"occupied grid cells after the run {summary['occupied_cells']}; "
-          f"dropped points {summary['dropped_points']}")
+          f"{summary['wall_ms_per_step']:.4f}; {summary['policy']} with "
+          f"{summary['recurrent_layers']} recurrent layers, instruction "
+          f"encodes {trainer.instruction_encodes}")
+    print(f"  launches: {launches}; peak memory "
+          f"{summary['peak_memory_bytes']} bytes")
+    if restarts is not None:
+        summary["episode_starts"] = restarts["starts"]
+        print(f"  {restarts['starts']} episode starts over the live lanes")
+        if restarts["starts"] <= summary["lanes"]:
+            raise SystemExit("no lane began a second episode")
+        # the cache re-encodes when a lane's episode changes or a lane
+        # pauses (its row turns to zeros), never at every step
+        if not (0 < trainer.instruction_encodes
+                <= restarts["starts"] + summary["lanes"]
+                and trainer.instruction_encodes < steps):
+            raise SystemExit(f"{trainer.instruction_encodes} instruction "
+                             f"encodes for {restarts['starts']} episode "
+                             f"starts and {steps} policy steps")
     for k in needed:
         if launches[k] == 0:
             raise SystemExit(f"{k} kernel never launched on the {path} path")
     for k in absent:
         if launches[k] != 0:
             raise SystemExit(f"{k} kernel launched on the {path} path")
+    if not trainer.obs_transforms:
+        return summary
+    mapper = trainer.obs_transforms[0]
+    if launches["rasterize"] != steps:
+        raise SystemExit(f"{launches['rasterize']} rasterize launches for "
+                         f"{steps} policy steps")
+    summary.update(
+        scene_loads=mapper.known_map_loads,
+        occupied_cells=int((mapper.state.word != S.EMPTY_WORD).sum()),
+        dropped_points=mapper.dropped_point_count(),
+    )
+    print(f"  scene loads {summary['scene_loads']}; occupied grid cells "
+          f"after the run {summary['occupied_cells']}; dropped points "
+          f"{summary['dropped_points']}")
     if summary["occupied_cells"] == 0:
         raise SystemExit(f"the {path} path stored no point")
+    if restarts is not None:
+        print(f"  episode starts without a grid clear: {restarts['missed']}")
+        if restarts["missed"]:
+            raise SystemExit("the episodic grid did not restart at every "
+                             "episode")
     return summary
 
 
 RANGES = ("mapper", "semantics", "known_map_load", "encoders",
-          "gru_attention", "instruction_encoder")
+          "rgb_encoder", "gru_attention", "instruction_encoder")
 TRACE_SKIP, TRACE_STEPS = 50, 100
 
 
@@ -1256,6 +1533,39 @@ def attribute_device_time(trace: dict) -> dict:
     }
 
 
+def latent_encoder_flops() -> dict:
+    """Float32 operations of LatentCMA's two ResNet-50s on one frame (two
+    per multiply-add of their convolutions): the depth encoder on a 256^2
+    frame (pooled to 128^2 inside) and the RGB encoder on a 224^2 frame,
+    counted from the layers' shapes on the CPU."""
+    from ivlnce_tpu_torch.models.resnet import (
+        TorchVisionResNetSpatial,
+        VlnResnetDepthEncoder,
+    )
+
+    encoders = {"depth": VlnResnetDepthEncoder(128).eval(),
+                "rgb": TorchVisionResNetSpatial("TorchVisionResNet50").eval()}
+    flops = {}
+    for name, enc in encoders.items():
+        macs = 0
+
+        def count(mod, inp, out):
+            nonlocal macs
+            k = mod.kernel_size[0] * mod.kernel_size[1]
+            macs += out.numel() * mod.in_channels // mod.groups * k
+
+        for mod in enc.modules():
+            if isinstance(mod, torch.nn.Conv2d):
+                mod.register_forward_hook(count)
+        with torch.no_grad():
+            if name == "depth":
+                enc(torch.zeros(1, 256, 256, 1))
+            else:
+                enc(torch.zeros(1, 224, 224, 3, dtype=torch.uint8))
+        flops[name] = 2 * macs
+    return flops
+
+
 def phase_trace(card: str, tmp: str, ckpt: str, wall_ms_per_step: float,
                 path: str) -> dict:
     """The path's eval again, with ``torch.profiler`` recording policy
@@ -1269,7 +1579,7 @@ def phase_trace(card: str, tmp: str, ckpt: str, wall_ms_per_step: float,
     from ivlnce_tpu_torch.run import run_exp
     from ivlnce_tpu_torch.trainers.base_trainer import BaseVLNCETrainer
 
-    config, extra, _, _ = PATHS[path]
+    config, extra, needed, _ = PATHS[path]
     trace_path = os.path.join(tmp, f"trace_{path}.json")
     prof = profile(
         activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -1306,9 +1616,11 @@ def phase_trace(card: str, tmp: str, ckpt: str, wall_ms_per_step: float,
         for short in current
         for name, v in got["by_kernel_us"].items() if short in name
     }
-    if set(mapper_kernels) != set(current):
-        raise SystemExit(f"mapper kernels missing from the trace: "
-                         f"{sorted(set(current) - set(mapper_kernels))}")
+    expected = set(current) if needed else set()
+    if set(mapper_kernels) != expected:
+        raise SystemExit(f"mapper kernels in the trace: "
+                         f"{sorted(mapper_kernels)}, expected "
+                         f"{sorted(expected)}")
     if any(set(v) != {"mapper"} for v in mapper_kernels.values()):
         raise SystemExit(f"mapper kernels outside the mapper range: "
                          f"{mapper_kernels}")
@@ -1394,7 +1706,9 @@ def main() -> int:
     print("phase 5: full-width steps, card vs CPU")
     reference = {"policy": phase_reference(card),
                  "known_occupied": phase_known_reference(card),
-                 "rednet": phase_rednet_reference(card)}
+                 "rednet": phase_rednet_reference(card),
+                 "latent": phase_latent_reference(card),
+                 "rxr_encode": phase_rxr_reference(card)}
 
     from ivlnce_tpu_torch.config import get_config
     from ivlnce_tpu_torch.trainers.base_trainer import save_checkpoint
@@ -1431,6 +1745,53 @@ def main() -> int:
               f"{traces['predicted']['semantics_bound_ms']:.4f} ms at 67 "
               f"TFLOP/s against {semantics_ms:.4f} ms in the semantics range")
 
+        print("phase 10: the latent baselines' tour evals through run_exp "
+              "(one tour per lane but for 4_pool_end_cma, which phase 11 "
+              "traces)")
+        one_tour = one_tour_per_lane(tmp)
+        for variant, (flags, layers) in LATENT_VARIANTS.items():
+            path = f"latent_{variant}"
+            config = latent_config(flags)
+            latent_ckpt = os.path.join(tmp, f"ckpt_{path}.0.pth")
+            save_checkpoint(seeded_latent_policy(config), config,
+                            latent_ckpt)
+            e2e[path] = phase_end_to_end(
+                card, tmp, latent_ckpt, path,
+                () if variant == "4_pool_end_cma" else one_tour)
+            if e2e[path]["recurrent_layers"] != layers:
+                raise SystemExit(f"{path} loaded a policy with "
+                                 f"{e2e[path]['recurrent_layers']} "
+                                 f"recurrent layers, not {layers}")
+        print("phase 11: the memory_at_end baseline traced")
+        path = "latent_4_pool_end_cma"
+        traces["latent"] = trace = phase_trace(
+            card, tmp, latent_ckpt, e2e[path]["wall_ms_per_step"], path)
+        ranges = trace["range_device_ms_per_step"]
+        if not ranges.get("rgb_encoder") or not ranges.get("encoders"):
+            raise SystemExit("no device time in the encoder ranges")
+        flops = latent_encoder_flops()
+        lanes = e2e[path]["lanes"]
+        trace["resnet_flops_per_frame"] = flops
+        trace["rgb_bound_ms"] = lanes * flops["rgb"] / FP32_FLOPS * 1e3
+        trace["depth_bound_ms"] = lanes * flops["depth"] / FP32_FLOPS * 1e3
+        print(f"  ResNet-50s: RGB 224^2 {flops['rgb']}, depth 256^2 "
+              f"{flops['depth']} float32 operations per frame, {lanes} "
+              f"frames each per policy step: bounds "
+              f"{trace['rgb_bound_ms']:.4f} ms (RGB) and "
+              f"{trace['depth_bound_ms']:.4f} ms (depth) at 67 TFLOP/s "
+              f"against {ranges['rgb_encoder']:.4f} ms in the rgb_encoder "
+              f"range and {ranges['encoders']:.4f} ms in the rest of "
+              f"encoders")
+
+        print("phase 12: episodic evals through run_exp")
+        e2e["map_episodic"] = phase_end_to_end(card, tmp, ckpt,
+                                               "map_episodic")
+        rxr_ckpt = os.path.join(tmp, "ckpt_rxr.0.pth")
+        save_checkpoint(seeded_latent_policy(get_config(RXR_CONFIG),
+                                             RXR_SEED),
+                        get_config(RXR_CONFIG), rxr_ckpt)
+        e2e["rxr"] = phase_end_to_end(card, tmp, rxr_ckpt, "rxr")
+
     # each kernel's launches come from the path that runs it
     kernel_path = {"accumulate": "iterative", "rasterize": "iterative",
                    "known_load": "known"}
@@ -1455,6 +1816,7 @@ def main() -> int:
             "library_ms": None,
             "yardstick_ms": timing[k]["yardstick_ms"],
             "cuda_kernels": KERNEL_NAMES[k],
+            "launches_by_path": {p: v["launches"][k] for p, v in e2e.items()},
             "pass_ms": timing[k]["pass_ms"],
         }
         for k in ("accumulate", "rasterize", "known_load")

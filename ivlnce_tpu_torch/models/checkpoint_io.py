@@ -19,6 +19,15 @@ INSTRUCTION_RENAMES = {
     "lstm_bwd": "encoder_rnn",  # the reverse direction (``_reverse``)
 }
 
+# the RGB trunk: the JAX package's torchvision stage names -> the
+# reference's positions in ``rgb_encoder.cnn``, Sequential(*resnet
+# .children()) (resnet_encoders.py:139; 2 relu and 3 maxpool hold no
+# parameters)
+RGB_TRUNK_POSITIONS = {
+    "conv1": "0", "bn1": "1",
+    "layer1": "4", "layer2": "5", "layer3": "6", "layer4": "7",
+}
+
 # recurrent leaves: JAX name -> torch name (``_l0`` + optional reverse)
 RNN_LEAVES = {
     "w_ih": "weight_ih",

@@ -1,9 +1,9 @@
 """Carry weights from the JAX package's parameter trees into the port.
 
 ``params_from_jax(np_params)`` turns the nested dict of numpy arrays the
-JAX MapCMA policy holds (for example from ``jax.device_get``) into the
-port's ``MapCMAPolicy`` state_dict; ``rednet_params_from_jax`` does the
-same for RedNet."""
+JAX MapCMA or LatentCMA policy holds (for example from
+``jax.device_get``) into the port's policy state_dict;
+``rednet_params_from_jax`` does the same for RedNet."""
 
 from __future__ import annotations
 
@@ -41,6 +41,8 @@ def _leaf(path: str, value: np.ndarray):
         else:
             leaf = cio.LEAVES[leaf]
         return f"instruction_encoder.{name}.{leaf}", value
+    if mods[:2] == ["rgb_encoder", "cnn"]:
+        mods = mods[:2] + [cio.RGB_TRUNK_POSITIONS[mods[2]]] + mods[3:]
     if top in cio.RNN_WRAPPED and leaf in cio.RNN_LEAVES:
         return f"{top}.rnn.{cio.RNN_LEAVES[leaf]}_l0", value
     if leaf == "w" and value.ndim == 4:
@@ -51,7 +53,8 @@ def _leaf(path: str, value: np.ndarray):
 
 
 def params_from_jax(np_params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX MapCMA policy params -> the port's MapCMAPolicy state_dict."""
+    """JAX MapCMA or LatentCMA policy params -> the port's policy
+    state_dict."""
     return _state_dict(np_params, "net.")
 
 

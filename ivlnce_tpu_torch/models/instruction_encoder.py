@@ -1,7 +1,10 @@
 """Instruction encoder: the PyTorch counterpart of
 ``ivlnce_tpu/models/instruction_encoder.py`` (reference
 instruction_encoder.py). Embedding (PAD = 0) -> bi-LSTM -> per-token
-features (B, 2H, T) with padded positions zeroed."""
+features (B, 2H, T) with padded positions zeroed. With ``sensor_uuid``
+``rxr_instruction`` there is no embedding: the bi-LSTM reads RxR's
+precomputed (T, embedding_size) features, and a row's length is the
+number of feature rows with any non-zero entry."""
 
 from __future__ import annotations
 
@@ -31,13 +34,10 @@ class InstructionEncoder(nn.Module):
         super().__init__()
         if config.rnn_type != "LSTM":
             raise ValueError("the instruction encoder is an LSTM")
-        if config.sensor_uuid != "instruction":
-            raise ValueError(
-                "only token instructions are ported; precomputed RxR "
-                "features wait for a later slice"
-            )
         self.config = config
-        if config.use_pretrained_embeddings and os.path.exists(
+        if config.sensor_uuid != "instruction":
+            self.embedding_layer = None
+        elif config.use_pretrained_embeddings and os.path.exists(
             config.embedding_file
         ):
             weights = torch.from_numpy(load_embeddings(config.embedding_file))
@@ -57,11 +57,14 @@ class InstructionEncoder(nn.Module):
         if "instruction_features" in observations:
             # per-episode cache (trainers/base_trainer.py)
             return observations["instruction_features"]
-        tokens = observations["instruction"].long()
-        lengths = (tokens != 0).sum(dim=1)
-        outputs, final = bi_lstm_padded(
-            self.encoder_rnn, self.embedding_layer(tokens), lengths
-        )
+        if self.embedding_layer is None:
+            embedded = observations["rxr_instruction"].float()
+            lengths = (embedded != 0).any(dim=2).sum(dim=1)
+        else:
+            tokens = observations["instruction"].long()
+            lengths = (tokens != 0).sum(dim=1)
+            embedded = self.embedding_layer(tokens)
+        outputs, final = bi_lstm_padded(self.encoder_rnn, embedded, lengths)
         if self.config.final_state_only:
             return final
         return outputs.permute(0, 2, 1)

@@ -1,16 +1,21 @@
-"""IL policy with a categorical action head: the PyTorch counterpart of
-``ivlnce_tpu/models/policy.py`` for MapCMA (reference policy.py:12-83,
-map_cma_policy.py:28-100)."""
+"""IL policies with a categorical action head: the PyTorch counterpart of
+``ivlnce_tpu/models/policy.py`` (reference policy.py:12-83,
+map_cma_policy.py:28-100, latent_cma_policy.py:28-193).
+
+``CMAPolicy`` holds the act plumbing both nets share; the subclasses name
+their net, the sensors its step reads and, for LatentCMA, which masks
+restart the GRUs in a tour."""
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributions import Categorical
 from torch.profiler import record_function
 
-from ivlnce_tpu_torch.models.cma import NUM_ACTIONS, MapCMANet
+from ivlnce_tpu_torch.models.cma import NUM_ACTIONS, LatentCMANet, MapCMANet
 from ivlnce_tpu_torch.utils.registry import registry
 
 
@@ -28,24 +33,25 @@ class CategoricalNet(nn.Module):
         nn.init.constant_(self.linear.bias, 0)
 
 
-@registry.register_policy(name="MapCMAPolicy")
-class MapCMAPolicy(nn.Module):
-    # sensors the act step reads (the upload filter keeps the rest, rgb
-    # included, on the host)
-    device_obs_keys = frozenset({"depth", "occupancy_map", "semantic_map"})
+def sample_actions(logits: torch.Tensor,
+                   generator: torch.Generator) -> torch.Tensor:
+    """One draw per row from Categorical(logits=...), (N, 1), taken with
+    ``generator`` so a seed gives the same actions."""
+    probs = Categorical(logits=logits).probs
+    return torch.multinomial(probs, 1, generator=generator)
 
-    def __init__(self, config, observation_info: Dict):
+
+class CMAPolicy(nn.Module):
+    """Shared act plumbing (``_CMAPolicyBase``, JAX policy.py:54-176)."""
+
+    def __init__(self, config, net_fn):
         super().__init__()
         model_config = config.MODEL.clone()
-        # the CMA nets force per-token instruction features
-        # (map_cma_policy.py:116-118)
+        # both CMA nets force per-token instruction features
+        # (map_cma_policy.py:116-118, latent_cma_policy.py:209-211)
         model_config.INSTRUCTION_ENCODER.final_state_only = False
         self.model_config = model_config.freeze()
-        self.net = MapCMANet(
-            self.model_config,
-            observation_info["depth_hw"],
-            observation_info["map_hw"],
-        )
+        self.net = net_fn(self.model_config)
         self.action_distribution = CategoricalNet(
             self.net.hidden_size, NUM_ACTIONS
         )
@@ -56,7 +62,7 @@ class MapCMAPolicy(nn.Module):
 
     @property
     def num_recurrent_layers(self) -> int:
-        return 2
+        return self.net.num_recurrent_layers
 
     @property
     def hidden_size(self) -> int:
@@ -68,24 +74,36 @@ class MapCMAPolicy(nn.Module):
             device=device,
         )
 
+    def _iterative_masks(
+        self, agent_masks, sim_masks, tour_masks
+    ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+        """(episode, tour) masks of act_iterative; None takes the agent
+        masks. MapCMA resets its GRUs at agent-episode boundaries
+        (map_cma_policy.py:45-71)."""
+        return None, None
+
     def _act(self, observations, rnn_states, prev_actions, action_masks,
-             episode_masks) -> PolicyOutput:
+             episode_masks, tour_masks, generator) -> PolicyOutput:
         # named ranges a torch.profiler trace attributes device time to
         with record_function("encoders"):
             feats = self.net.encode(observations, prev_actions, action_masks)
         with record_function("gru_attention"):
             features, rnn_out = self.net.step(
-                feats, rnn_states, episode_masks
+                feats, rnn_states, episode_masks, tour_masks
             )
         logits = self.action_distribution.linear(features)
-        actions = torch.argmax(logits, dim=-1, keepdim=True)
+        if generator is None:
+            actions = torch.argmax(logits, dim=-1, keepdim=True)
+        else:
+            actions = sample_actions(logits, generator)
         return PolicyOutput(actions, rnn_out, logits)
 
-    def act(self, observations, rnn_states, prev_actions, masks
-            ) -> PolicyOutput:
-        """Deterministic (mode) action."""
+    def act(self, observations, rnn_states, prev_actions, masks,
+            generator: Optional[torch.Generator] = None) -> PolicyOutput:
+        """The mode action, or a draw when a ``generator`` is given."""
         masks = masks.reshape(-1)
-        return self._act(observations, rnn_states, prev_actions, masks, masks)
+        return self._act(observations, rnn_states, prev_actions, masks,
+                         masks, None, generator)
 
     def act_iterative(
         self,
@@ -96,9 +114,47 @@ class MapCMAPolicy(nn.Module):
         sim_episode_not_done_masks: torch.Tensor,
         tour_not_done_masks: torch.Tensor,
         action_masks: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
     ) -> PolicyOutput:
-        """MapCMA resets its GRUs and its previous-action embedding at
-        agent-episode boundaries (map_cma_policy.py:45-71); the sim,
-        tour and action masks are part of the shared signature."""
+        """The previous-action embedding is reset by the agent masks; the
+        GRUs by the masks ``_iterative_masks`` picks."""
         agent = agent_episode_not_done_masks.reshape(-1)
-        return self._act(observations, rnn_states, prev_actions, agent, agent)
+        episode, tour = self._iterative_masks(
+            agent, sim_episode_not_done_masks.reshape(-1),
+            tour_not_done_masks.reshape(-1),
+        )
+        if episode is None:
+            episode = agent
+        return self._act(observations, rnn_states, prev_actions, agent,
+                         episode, tour, generator)
+
+
+@registry.register_policy(name="MapCMAPolicy")
+class MapCMAPolicy(CMAPolicy):
+    # sensors the act step reads (the upload filter keeps the rest, rgb
+    # included, on the host)
+    device_obs_keys = frozenset({"depth", "occupancy_map", "semantic_map"})
+
+    def __init__(self, config, observation_info: Dict):
+        super().__init__(config, lambda cfg: MapCMANet(
+            cfg, observation_info["depth_hw"], observation_info["map_hw"]))
+
+
+@registry.register_policy(name="LatentCMAPolicy")
+class LatentCMAPolicy(CMAPolicy):
+    device_obs_keys = frozenset({"depth", "rgb"})
+
+    def __init__(self, config, observation_info: Dict):
+        super().__init__(config, lambda cfg: LatentCMANet(
+            cfg, observation_info["depth_hw"]))
+
+    def _iterative_masks(self, agent_masks, sim_masks, tour_masks):
+        """latent_cma_policy.py:48-88: ``tour_memory_variant`` keeps the
+        episodic resets and clears the memory slot at tour boundaries;
+        ``tour_memory`` restarts the GRUs only at tour boundaries."""
+        cfg = self.model_config
+        if cfg.tour_memory_variant:
+            return agent_masks, tour_masks
+        if cfg.tour_memory:
+            return tour_masks, None
+        return None, None

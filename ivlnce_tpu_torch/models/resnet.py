@@ -1,6 +1,7 @@
-"""The DDPPO GroupNorm ResNet-50 depth encoder: the PyTorch counterpart of
-``ivlnce_tpu/models/resnet.py:38-184`` (habitat-lab v0.1.7 structure,
-reference resnet_encoders.py:17-115). Module names follow the reference
+"""The DDPPO GroupNorm ResNet-50 depth encoder and the torchvision
+BatchNorm trunks of the RGB encoder: the PyTorch counterpart of
+``ivlnce_tpu/models/resnet.py`` (habitat-lab v0.1.7 structure, reference
+resnet_encoders.py:17-229). Module names follow the reference
 checkpoints."""
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ import torch
 from torch import nn
 
 RESNET50_LAYERS = (3, 4, 6, 3)
+RESNET18_LAYERS = (2, 2, 2, 2)
 
 
 class GNBottleneck(nn.Module):
@@ -148,3 +150,91 @@ class BNBottleneck(nn.Module):
         out = self.bn3(self.conv3(out))
         identity = x if self.downsample is None else self.downsample(x)
         return torch.relu(out + identity)
+
+
+class BNBasicBlock(nn.Module):
+    """torchvision's BatchNorm ResNet-18 basic block: two 3x3 convolutions,
+    expansion 1 (``ivlnce_tpu/models/resnet.py:263-294``)."""
+
+    expansion = 1
+
+    def __init__(self, inplanes: int, planes: int, stride: int,
+                 downsample: bool):
+        super().__init__()
+        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
+        self.bn1 = nn.BatchNorm2d(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.bn2 = nn.BatchNorm2d(planes)
+        self.downsample = (
+            nn.Sequential(
+                nn.Conv2d(inplanes, planes, 1, stride, bias=False),
+                nn.BatchNorm2d(planes),
+            )
+            if downsample
+            else None
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = torch.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        identity = x if self.downsample is None else self.downsample(x)
+        return torch.relu(out + identity)
+
+
+def bn_resnet_trunk(block, layers) -> nn.Sequential:
+    """conv1 .. layer4 of a torchvision ResNet as the reference's
+    ``Sequential(*resnet.children())`` numbers them: 0 conv1, 1 bn1,
+    2 relu, 3 maxpool, 4-7 layer1-layer4 (no pooling, no fc)."""
+    mods = [nn.Conv2d(3, 64, 7, 2, 3, bias=False), nn.BatchNorm2d(64),
+            nn.ReLU(True), nn.MaxPool2d(3, 2, 1)]
+    inplanes = 64
+    for si, blocks in enumerate(layers):
+        planes = 64 * 2 ** si
+        stride = 1 if si == 0 else 2
+        stage = []
+        for bi in range(blocks):
+            s = stride if bi == 0 else 1
+            out = planes * block.expansion
+            stage.append(block(inplanes, planes, s,
+                               bi == 0 and (s != 1 or inplanes != out)))
+            inplanes = out
+        mods.append(nn.Sequential(*stage))
+    trunk = nn.Sequential(*mods)
+    trunk.final_channels = inplanes
+    return trunk
+
+
+class TorchVisionResNetSpatial(nn.Module):
+    """The RGB encoder ``TorchVisionResNet50`` / ``TorchVisionResNet18``
+    with spatial_output=True (resnet_encoders.py:118-229;
+    ``ivlnce_tpu/models/resnet.py:345-413``): uint8 NHWC scaled by 1/255
+    only, the frozen trunk with its running statistics, an adaptive
+    average pool to 4x4 and a learned 16-cell spatial embedding on the
+    channels: (B, 2048 + 64, 4, 4) or (B, 512 + 64, 4, 4)."""
+
+    def __init__(self, cnn_type: str, spatial_embedding_dim: int = 64):
+        super().__init__()
+        if cnn_type == "TorchVisionResNet50":
+            self.cnn = bn_resnet_trunk(BNBottleneck, RESNET50_LAYERS)
+        elif cnn_type == "TorchVisionResNet18":
+            self.cnn = bn_resnet_trunk(BNBasicBlock, RESNET18_LAYERS)
+        else:
+            raise ValueError(f"unknown RGB encoder {cnn_type}")
+        self.spatial_embeddings = nn.Embedding(16, spatial_embedding_dim)
+        self.output_shape: Tuple[int, int, int] = (
+            self.cnn.final_channels + spatial_embedding_dim, 4, 4
+        )
+
+    def train(self, mode: bool = True):
+        """The trunk stays in eval mode: both users freeze it."""
+        super().train(mode)
+        self.cnn.eval()
+        return self
+
+    def forward(self, rgb_nhwc: torch.Tensor) -> torch.Tensor:
+        x = rgb_nhwc.permute(0, 3, 1, 2).float() / 255.0
+        x = nn.functional.adaptive_avg_pool2d(self.cnn(x), 4)
+        b = x.shape[0]
+        emb = self.spatial_embeddings.weight  # (16, D)
+        spatial = emb.t().reshape(1, -1, 4, 4).expand(b, -1, 4, 4)
+        return torch.cat([x, spatial], dim=1)

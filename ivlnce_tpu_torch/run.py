@@ -4,8 +4,8 @@
         [--device cuda|cpu] [opt.key value ...]
 
 Runs on the CUDA card unless ``--device cpu`` is given; without a card
-and without ``--device cpu`` it raises. Only ``eval`` (iterative
-evaluation) is ported so far."""
+and without ``--device cpu`` it raises. Only ``eval`` (episodic and
+iterative evaluation, MapCMA and LatentCMA) is ported so far."""
 
 from __future__ import annotations
 
@@ -21,7 +21,8 @@ def register_all() -> None:
     import ivlnce_tpu_torch.mapping.obs_transforms  # noqa: F401
     import ivlnce_tpu_torch.models.policy  # noqa: F401
     import ivlnce_tpu_torch.tasks.measures  # noqa: F401
-    import ivlnce_tpu_torch.trainers.base_trainer  # noqa: F401
+    # the three trainers (each module imports the one it extends)
+    import ivlnce_tpu_torch.trainers.iterative_dagger_trainer  # noqa: F401
 
 
 def run_exp(exp_config: str, run_type: str, opts=None, device=None):

@@ -1,12 +1,14 @@
 """VLN-CE evaluation trainer: the PyTorch counterpart of the eval half of
 ``ivlnce_tpu/trainers/base_trainer.py`` (reference
-ivlnce_baselines/common/base_il_trainer.py:585-928).
+ivlnce_baselines/common/base_il_trainer.py:313-928).
 
-Iterative (tour) evaluation only: each env step runs the mapper and the
-policy on the device in one call (``_policy_step``) and brings back the
-actions; lanes keep a fixed row count while envs pause. Stats JSONs and
-tour-nDTW are written as the JAX package writes them. Training and
-episodic evaluation wait for a later slice of the port."""
+Episodic and iterative (tour) evaluation: each env step runs the mapper
+obs transform, when one is enabled, and the policy on the device
+(``_policy_step``) and brings back the actions; lanes keep a fixed row
+count while envs pause. Stats JSONs and tour-nDTW are written as the JAX
+package writes them. The registered trainers (``dagger_trainer.py`` and
+its two iterative subclasses) are this class under the reference's
+names; training waits for a later slice of the port."""
 
 from __future__ import annotations
 
@@ -33,6 +35,11 @@ from ivlnce_tpu_torch.utils.tb import TensorboardWriter
 
 logger = logging_util.logger
 
+EVAL_METRICS = (
+    "distance_to_goal success spl ndtw path_length oracle_success "
+    "steps_taken".split()
+)
+
 
 def save_checkpoint(policy, config, path: str, **meta) -> None:
     """The port's checkpoint: ``torch.save({"state_dict", "config",
@@ -48,10 +55,9 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-@registry.register_trainer(name="iterative_collection_dagger")
 class BaseVLNCETrainer:
-    """Evaluation of a MapCMA checkpoint on the device given by
-    ``device`` ("cuda" unless the caller asks for "cpu")."""
+    """Evaluation of a MapCMA or LatentCMA checkpoint on the device given
+    by ``device`` ("cuda" unless the caller asks for "cpu")."""
 
     def __init__(self, config, device: Optional[str] = None):
         self.config = config
@@ -61,12 +67,19 @@ class BaseVLNCETrainer:
         self.flush_secs = 30
         self._lane_rows = None
         self._txt_cache_tokens = None
+        self._device_step = None
+        self._generator = None
+        # policy steps and instruction bi-LSTM runs (once per episode
+        # change, not per step) over the trainer's evals
+        self.policy_steps = 0
+        self.instruction_encodes = 0
         os.makedirs(config.CHECKPOINT_FOLDER, exist_ok=True)
         if config.EVAL.SAVE_RESULTS:
             os.makedirs(config.RESULTS_DIR, exist_ok=True)
 
     # -- policy ----------------------------------------------------------------
     def _observation_info(self, config) -> Dict:
+        """Sensor sizes the nets are built for; LatentCMA ignores map_hw."""
         mapper = config.RL.POLICY.OBS_TRANSFORMS.EGOCENTRIC_MAPPER
         return {
             "depth_hw": config.TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.HEIGHT,
@@ -89,6 +102,21 @@ class BaseVLNCETrainer:
         logger.info(f"Agent parameters: {n_params}.")
         self._lane_rows = None
         self._txt_cache_tokens = None
+        # EVAL.SAMPLE: actions drawn with a generator on the policy's
+        # device seeded from TASK_CONFIG.SEED (base_il_trainer.py:452,699)
+        self._generator = None
+        if config.EVAL.SAMPLE:
+            self._generator = torch.Generator(device=self.device)
+            self._generator.manual_seed(config.TASK_CONFIG.SEED)
+
+    def _setup_obs_transforms(self, config) -> None:
+        """The enabled mapper obs transform and its device step; none for
+        a policy that reads no map (LatentCMA)."""
+        self.obs_transforms = get_active_obs_transforms(config, self.device)
+        self._device_step = (
+            self.obs_transforms[0].make_device_step()
+            if self.obs_transforms else None
+        )
 
     def _extract_tokens(self, observations):
         return extract_instruction_tokens(
@@ -141,45 +169,50 @@ class BaseVLNCETrainer:
         return self._cache_instruction_features(dobs)
 
     def _cache_instruction_features(self, dobs):
-        """Encode the instruction bi-LSTM once per episode: on a token
-        change (an episode boundary) re-encode; the step reads the cached
-        per-token features."""
-        if "instruction" not in dobs:
+        """Encode the instruction bi-LSTM once per episode: the tokens (or
+        RxR's precomputed features) are compared on the host, and only on
+        a change (an episode boundary) uploaded and re-encoded; the step
+        reads the cached per-token features."""
+        key = next((k for k in ("instruction", "rxr_instruction")
+                    if k in dobs), None)
+        if key is None:
             return dobs
-        tokens = np.asarray(dobs["instruction"])
+        tokens = np.asarray(dobs[key])
         if self._txt_cache_tokens is None or not np.array_equal(
             tokens, self._txt_cache_tokens
         ):
             t = torch.from_numpy(tokens).to(self.device)
             with record_function("instruction_encoder"):
                 self._txt_cache = self.policy.net.instruction_encoder(
-                    {"instruction": t}
+                    {key: t}
                 )
             self._txt_cache_tokens = tokens.copy()
+            self.instruction_encodes += 1
         dobs = dict(dobs)
-        del dobs["instruction"]
+        del dobs[key]
         dobs["instruction_features"] = self._txt_cache
         return dobs
 
     def _policy_step(self, batch, reset_masks, rnn_states, prev_actions,
-                     masks):
-        """Mapper step + act_iterative for the live lanes. ``masks`` is
-        (agent, sim, tour, action); returns (actions (live, 1) host array,
-        full-width rnn_states on the device)."""
+                     masks, iterative: bool = True):
+        """Mapper step, when a transform is enabled, then ``act_iterative``
+        (``masks`` is (agent, sim, tour, action)) or, with ``iterative``
+        False, ``act`` (``masks`` is (not_done,)) for the live lanes.
+        Returns (actions (live, 1) host array, full-width rnn_states on
+        the device)."""
+        self.policy_steps += 1
         if self._lane_rows is None or rnn_states.shape[0] != self._num_rows:
             self._reset_lanes(rnn_states.shape[0])
         rows = self._lane_rows
-        transform = self.obs_transforms[0]
-        # before the wire obs: host_prepare may add scene_center to the
-        # batch besides allocating state and preloading known maps
-        transform.host_prepare(
-            batch, np.asarray(reset_masks).reshape(-1), rows=rows,
-            num_rows=self._num_rows,
-        )
+        transform = self.obs_transforms[0] if self.obs_transforms else None
+        if transform is not None:
+            # before the wire obs: host_prepare may add scene_center to the
+            # batch besides allocating state and preloading known maps
+            transform.host_prepare(
+                batch, np.asarray(reset_masks).reshape(-1), rows=rows,
+                num_rows=self._num_rows,
+            )
         obs = batching.decode_wire_obs(self._wire_device_obs(batch, transform))
-        reset_full = self._expand_rows(
-            np.asarray(reset_masks, np.float32).reshape(-1, 1)
-        )
 
         def dev(a, dtype):
             return torch.as_tensor(self._expand_rows(a), dtype=dtype,
@@ -187,16 +220,20 @@ class BaseVLNCETrainer:
 
         masks_full = [dev(m, torch.float32) for m in masks]
         prev_full = dev(prev_actions, torch.int64)
-        with record_function("mapper"):
-            state, occ, sem = self._device_step(
-                transform.state, obs, reset_full.reshape(-1),
-                transform.rednet,
+        if transform is not None:
+            reset_full = self._expand_rows(
+                np.asarray(reset_masks, np.float32).reshape(-1, 1)
             )
-        transform.state = state
-        pobs = dict(obs, occupancy_map=occ, semantic_map=sem)
-        out = self.policy.act_iterative(
-            pobs, rnn_states, prev_full, *masks_full
-        )
+            with record_function("mapper"):
+                state, occ, sem = self._device_step(
+                    transform.state, obs, reset_full.reshape(-1),
+                    transform.rednet,
+                )
+            transform.state = state
+            obs = dict(obs, occupancy_map=occ, semantic_map=sem)
+        act = self.policy.act_iterative if iterative else self.policy.act
+        out = act(obs, rnn_states, prev_full, *masks_full,
+                  generator=self._generator)
         return out.actions.cpu().numpy()[rows], out.rnn_states
 
     def _pause_envs(self, envs_to_pause, envs, *arrays, batch=None):
@@ -291,18 +328,117 @@ class BaseVLNCETrainer:
         opts.SHUFFLE_EPISODES = False
         config.IL.ckpt_to_load = checkpoint_path
         config.freeze()
-        if not config.TASK_CONFIG.ENVIRONMENT.ITERATIVE.ENABLED:
-            raise NotImplementedError(
-                "episodic evaluation waits for a later slice of the port"
-            )
-        if config.EVAL.SAMPLE or len(config.VIDEO_OPTION) > 0:
-            raise NotImplementedError(
-                "sampled actions and videos wait for a later slice"
-            )
+        if len(config.VIDEO_OPTION) > 0:
+            raise NotImplementedError("videos wait for a later slice")
         with torch.inference_mode():
-            return self._eval_checkpoint_iterative(
+            if config.TASK_CONFIG.ENVIRONMENT.ITERATIVE.ENABLED:
+                return self._eval_checkpoint_iterative(
+                    config, writer, checkpoint_index
+                )
+            return self._eval_checkpoint_episodic(
                 config, writer, checkpoint_index
             )
+
+    def _eval_checkpoint_episodic(self, config, writer,
+                                  checkpoint_index: int = 0):
+        """The episodic loop (base_il_trainer.py:313-583): each lane walks
+        its episodes with the GRUs, and the map, restarted at every
+        episode; a lane pauses when its next episode was evaluated."""
+        split = config.TASK_CONFIG.DATASET.SPLIT
+        fname = os.path.join(
+            config.RESULTS_DIR, f"stats_ckpt_{checkpoint_index}_{split}.json"
+        )
+        if config.EVAL.SAVE_RESULTS and os.path.exists(fname):
+            logger.info("skipping -- evaluation exists.")
+            return None
+
+        env_class = registry.get_env(config.ENV_NAME)
+        envs = construct_envs_auto_reset_false(config, env_class)
+        self._setup_obs_transforms(config)
+        self._initialize_policy(config, config.IL.ckpt_to_load)
+
+        rnn_states = self.policy.initial_rnn_states(
+            envs.num_envs, self.device
+        )
+        prev_actions = np.zeros((envs.num_envs, 1), np.int64)
+        not_done_masks = np.zeros((envs.num_envs, 1), np.uint8)
+
+        observations = self._extract_tokens(envs.reset())
+        batch = batch_obs(observations)
+
+        stats_episodes: Dict[str, Dict] = {}
+        episodes_to_eval = sum(envs.count_episodes())
+        if config.EVAL.EPISODE_COUNT > -1:
+            episodes_to_eval = min(config.EVAL.EPISODE_COUNT,
+                                   episodes_to_eval)
+        start_time = time.time()
+        env_steps = 0
+        while envs.num_envs > 0 and len(stats_episodes) < episodes_to_eval:
+            env_steps += envs.num_envs
+            current_episodes = self._current_episode_info(envs)
+            # the not-done masks restart the map and the GRUs
+            actions, rnn_states = self._policy_step(
+                batch, not_done_masks, rnn_states, prev_actions,
+                (not_done_masks,), iterative=False,
+            )
+            prev_actions = actions
+            outputs = envs.step([int(a[0]) for a in actions])
+            observations, _, dones, infos = (list(x) for x in zip(*outputs))
+            not_done_masks = np.array(
+                [[0] if done else [1] for done in dones], np.uint8
+            )
+            for i in range(envs.num_envs):
+                if not dones[i]:
+                    continue
+                stats_episodes[current_episodes[i]["episode_id"]] = {
+                    k: infos[i][k] for k in EVAL_METRICS if k in infos[i]
+                }
+                observations[i] = envs.reset_at(i)
+                prev_actions[i] = 0
+                elapsed = time.time() - start_time
+                logger.info(
+                    f"[Ckpt: {checkpoint_index}] episodes evaluated: "
+                    f"{len(stats_episodes)}/{episodes_to_eval} "
+                    f"({round(elapsed)}s, "
+                    f"{env_steps / max(elapsed, 1e-6):.1f} env steps/s)"
+                )
+
+            observations = self._extract_tokens(observations)
+            batch = batch_obs(observations)
+
+            next_episodes = self._current_episode_info(envs)
+            envs_to_pause = [
+                i for i in range(envs.num_envs)
+                if next_episodes[i]["episode_id"] in stats_episodes
+            ]
+            envs, not_done_masks, prev_actions, batch = self._pause_envs(
+                envs_to_pause, envs, not_done_masks, prev_actions,
+                batch=batch,
+            )
+
+        envs.close()
+        self.env_steps = env_steps
+        self.eval_seconds = time.time() - start_time
+        for transform in self.obs_transforms:
+            transform.warn_if_dropped("episodic eval")
+
+        aggregated_stats = {}
+        num_episodes = max(len(stats_episodes), 1)
+        if stats_episodes:
+            for stat_key in next(iter(stats_episodes.values())).keys():
+                aggregated_stats[stat_key] = (
+                    sum(v[stat_key] for v in stats_episodes.values())
+                    / num_episodes
+                )
+        if config.EVAL.SAVE_RESULTS:
+            with open(fname, "w") as f:
+                json.dump(aggregated_stats, f, indent=4)
+
+        logger.info(f"Episodes evaluated: {num_episodes}")
+        for k, v in aggregated_stats.items():
+            logger.info(f"Average episode {k}: {v:.6f}")
+            writer.add_scalar(f"eval_{split}_{k}", v, checkpoint_index + 1)
+        return aggregated_stats
 
     def _eval_checkpoint_iterative(self, config, writer,
                                    checkpoint_index: int = 0):
@@ -327,8 +463,7 @@ class BaseVLNCETrainer:
 
         env_class = registry.get_env(config.ENV_NAME)
         envs = construct_envs_auto_reset_false(config, env_class)
-        self.obs_transforms = get_active_obs_transforms(config, self.device)
-        self._device_step = self.obs_transforms[0].make_device_step()
+        self._setup_obs_transforms(config)
         self._initialize_policy(config, config.IL.ckpt_to_load)
 
         rnn_states = self.policy.initial_rnn_states(

@@ -76,10 +76,12 @@ def batch_obs(
 
 DEPTH_WIRE_SCALE = 65535.0
 
-# wire keys the device step reads on the host (per-lane scalars); every
-# other wire key is uploaded, rgb and semantic12 as uint8
+# wire keys the device step reads on the host (per-lane scalars, and the
+# instruction tokens or RxR features, which the per-episode cache compares
+# on the host and uploads only on a change); every other wire key is
+# uploaded, rgb and semantic12 as uint8
 HOST_OBS_KEYS = frozenset({"world_robot_pose", "world_robot_orientation",
-                           "scene_center", "instruction"})
+                           "scene_center", "instruction", "rxr_instruction"})
 
 
 def encode_wire_obs(dobs: Dict[str, Any], depth_uint16: bool = True) -> Dict:

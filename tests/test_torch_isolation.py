@@ -200,3 +200,62 @@ def test_float_keys_round_trip_and_keep_order(rng):
     order = np.argsort(keys.numpy(), kind="stable")
     assert (np.diff(x[order]) >= 0).all()
     assert G.f32_reciprocal(0.05) == float(np.float32(1) / np.float32(0.05))
+
+
+TRAINERS = ("dagger", "iterative_collection_dagger", "iterative_dagger")
+
+
+def _trainer(name, tmp_path, *opts):
+    from ivlnce_tpu_torch.config import get_config
+    from ivlnce_tpu_torch.run import register_all
+    from ivlnce_tpu_torch.utils.registry import registry
+
+    register_all()
+    config = get_config(
+        "configs/fake/map_cma_eval_iterative.yaml",
+        ["TRAINER_NAME", name,
+         "CHECKPOINT_FOLDER", str(tmp_path / "ckpts"),
+         "RESULTS_DIR", str(tmp_path / "results"), *opts])
+    return registry.get_trainer(config.TRAINER_NAME)(config, "cpu")
+
+
+@pytest.mark.parametrize("name", TRAINERS)
+def test_trainer_names_resolve_to_eval_trainers(name, tmp_path):
+    from ivlnce_tpu_torch.trainers.base_trainer import BaseVLNCETrainer
+    from ivlnce_tpu_torch.utils.registry import registry
+
+    trainer = _trainer(name, tmp_path)
+    assert isinstance(trainer, BaseVLNCETrainer)
+    # the base class itself is registered under no name
+    assert type(trainer) is not BaseVLNCETrainer
+    assert registry.get_trainer(name) is type(trainer)
+
+
+@pytest.mark.parametrize("name", TRAINERS)
+def test_training_waits_for_its_slice(name, tmp_path):
+    with pytest.raises(NotImplementedError, match="training slice"):
+        _trainer(name, tmp_path).train()
+
+
+def test_videos_still_raise(tmp_path):
+    trainer = _trainer("dagger", tmp_path, "VIDEO_OPTION", "['disk']")
+    with pytest.raises(NotImplementedError, match="videos"):
+        trainer._eval_checkpoint(str(tmp_path / "ckpt.0.pth"), None)
+
+
+@pytest.mark.parametrize("module", (
+    "models/resnet.py", "models/instruction_encoder.py", "models/cma.py",
+    "models/policy.py", "models/convert.py", "trainers/base_trainer.py",
+    "trainers/dagger_trainer.py",
+    "trainers/iterative_collection_dagger_trainer.py",
+    "trainers/iterative_dagger_trainer.py", "run.py",
+))
+def test_latent_and_episodic_modules_stand_alone(module):
+    """The modules of the LatentCMA and episodic evals, each on its own:
+    no import of JAX or of the JAX package, at module level or inside a
+    function."""
+    path = os.path.join(PORT, module)
+    name = "ivlnce_tpu_torch." + module[:-3].replace("/", ".")
+    assert name in _port_modules()  # so the import test covers it too
+    for imported in _imported_names(path):
+        assert imported.split(".")[0] not in FORBIDDEN, imported
