@@ -54,7 +54,17 @@ Phases (any failure ends the run with a nonzero exit):
    GT-semantics mapper (configs/fake/map_cma_eval_episodic.yaml: K1 and
    K2, every lane's grid cleared at every episode start) and LatentCMA on
    RxR's precomputed features (configs/fake/rxr_eval.yaml: the
-   instruction encoder runs once per episode change, not per step).
+   instruction encoder runs once per episode change, not per step);
+13. the eval surface: (a) phase 6's weights written as the port's own
+   checkpoint, a reference-layout ``.pth`` and a JAX-layout pickle, each
+   evaluated through ``run_exp`` over one tour per lane (identical
+   actions at every step, equal stats, K1 and K2 once per policy step);
+   (b) the MapCMA episodic eval (2 lanes, ``EVAL.EPISODE_COUNT`` 3) with
+   ``VIDEO_OPTION ['disk']`` and ``TPU.profile_dir`` (one video per
+   episode whose frames carry the top-down map and the egocentric map
+   panels; a Chrome trace holding 20 ``policy_step`` ranges); (c) every
+   ``run_exp`` eval above prints its host-phase split
+   (``IVLNCE_PHASE_TIMES``, set before the port is imported).
 
 Prints the kernels as one JSON line and, last, the device as JSON.
 Imports nothing of JAX.
@@ -1357,18 +1367,38 @@ def one_tour_per_lane(tmp: str) -> tuple:
             "EVAL.ITERATIVE_GT_PATHS", paths[1])
 
 
+def host_phases(trainer) -> dict:
+    """The eval's host-phase split (``utils/profiling.wall_range``, reset
+    at each checkpoint's start): seconds, spans and share of the eval
+    loop's wall time per phase, the rest as ``other``."""
+    from ivlnce_tpu_torch.utils import profiling
+
+    if not profiling._PHASES_ON:
+        raise SystemExit("IVLNCE_PHASE_TIMES was not set before the port "
+                         "was imported")
+    wall = trainer.eval_seconds
+    out = {k: {"s": v, "spans": profiling._phase_counts[k],
+               "share": v / wall}
+           for k, v in profiling._phase_times.items()}
+    other = wall - sum(v["s"] for v in out.values())
+    out["other"] = {"s": other, "spans": 0, "share": other / wall}
+    return out
+
+
 def phase_end_to_end(card: str, tmp: str, ckpt: str, path: str,
-                     extra_opts=()) -> dict:
-    """``run_exp`` eval of one path on the card, the launch counters set
-    to 0 just before and read just after."""
+                     extra_opts=(), run=None) -> dict:
+    """``run_exp`` eval of one path on the card (outputs under
+    ``tmp/run``, ``run`` defaulting to the path's name), the launch
+    counters set to 0 just before and read just after."""
     from ivlnce_tpu_torch.ops import kernels
     from ivlnce_tpu_torch.ops import scatter as S
     from ivlnce_tpu_torch.run import run_exp
 
     config, extra, needed, absent = PATHS[path]
     episodic = path in EPISODIC_PATHS
-    results = os.path.join(tmp, path, "results")
-    opts = eval_opts(tmp, path, ckpt, tuple(extra) + tuple(extra_opts))
+    run = run or path
+    results = os.path.join(tmp, run, "results")
+    opts = eval_opts(tmp, run, ckpt, tuple(extra) + tuple(extra_opts))
     restarts, undo = (_restart_recorder() if episodic else (None, None))
     torch.cuda.reset_peak_memory_stats()
     S.launches.reset()
@@ -1410,6 +1440,8 @@ def phase_end_to_end(card: str, tmp: str, ckpt: str, path: str,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "launches": launches,
         "instruction_encodes": trainer.instruction_encodes,
+        "episodes": trainer.episodes_evaluated,
+        "host_phases": host_phases(trainer),
         "stats": stats,
     }
     if not episodic:
@@ -1424,7 +1456,6 @@ def phase_end_to_end(card: str, tmp: str, ckpt: str, path: str,
         if tours_crossed < 3:
             raise SystemExit(f"only {tours_crossed} tours crossed an "
                              "episode boundary")
-        summary["episodes"] = sum(len(v) for v in per_tour.values())
         summary["tours_crossed"] = tours_crossed
     print(f"  [{card}] {path}: {trainer.env_steps} env steps in "
           f"{trainer.eval_seconds:.2f} s: "
@@ -1435,6 +1466,10 @@ def phase_end_to_end(card: str, tmp: str, ckpt: str, path: str,
           f"encodes {trainer.instruction_encodes}")
     print(f"  launches: {launches}; peak memory "
           f"{summary['peak_memory_bytes']} bytes")
+    print(f"  host phases [{card}] {run}, of {trainer.eval_seconds:.4f} s: "
+          + ", ".join(f"{k} {v['s']:.4f} s ({100 * v['share']:.2f}%, "
+                      f"{v['spans']} spans)"
+                      for k, v in summary["host_phases"].items()))
     if restarts is not None:
         summary["episode_starts"] = restarts["starts"]
         print(f"  {restarts['starts']} episode starts over the live lanes")
@@ -1662,10 +1697,184 @@ def phase_trace(card: str, tmp: str, ckpt: str, wall_ms_per_step: float,
     return summary
 
 
+def _action_recorder():
+    """Wrap the trainer's policy step to record each step's actions;
+    returns the record and a function that undoes the wrapping."""
+    from ivlnce_tpu_torch.trainers.base_trainer import BaseVLNCETrainer
+
+    record = []
+    policy_step = BaseVLNCETrainer._policy_step
+
+    def stepped(self, *args, **kwargs):
+        actions, rnn_states = policy_step(self, *args, **kwargs)
+        record.append(np.asarray(actions).ravel().tolist())
+        return actions, rnn_states
+
+    BaseVLNCETrainer._policy_step = stepped
+
+    def undo():
+        BaseVLNCETrainer._policy_step = policy_step
+    return record, undo
+
+
+def write_checkpoint_kinds(tmp: str, config) -> dict:
+    """Phase 6's seeded MapCMA weights as the three checkpoint kinds the
+    eval reads: the port's own file, a reference-layout ``.pth`` (with
+    the reference's ``net._scale`` buffer, ``epoch`` and a dict config)
+    and a JAX-layout pickle (the JAX package's parameter tree, from the
+    port's copies of its converters, with an optimizer state of plain
+    arrays)."""
+    import pickle
+
+    from ivlnce_tpu_torch.models import checkpoint_io as cio
+    from ivlnce_tpu_torch.trainers.base_trainer import save_checkpoint
+
+    policy = seeded_policy(config)
+    state = policy.state_dict()
+    paths = {kind: os.path.join(tmp, f"ckpt_{kind}.0.{ext}")
+             for kind, ext in (("own", "pth"), ("reference", "pth"),
+                               ("jax", "pkl"))}
+    save_checkpoint(policy, config, paths["own"])
+    scale = torch.tensor(1.0 / math.sqrt(policy.hidden_size // 2))
+    torch.save({"state_dict": {**state, cio.REFERENCE_SCALE_KEY: scale},
+                "epoch": 0, "config": config.to_dict()},
+               paths["reference"])
+    params = cio.jax_params_from_state_dict(state)
+
+    def zeros(tree):
+        return {k: zeros(v) if isinstance(v, dict) else np.zeros_like(v)
+                for k, v in tree.items()}
+
+    with open(paths["jax"], "wb") as f:
+        pickle.dump({"params": params,
+                     "optim_state": (np.zeros((), np.int32), zeros(params),
+                                     zeros(params)),
+                     "config": config.to_dict(), "dagger_it": 0,
+                     "epoch": 0, "step_id": 0}, f,
+                    protocol=pickle.HIGHEST_PROTOCOL)
+    return paths
+
+
+def phase_checkpoint_kinds(card: str, tmp: str, one_tour) -> dict:
+    """Phase 13a: the iterative eval from each checkpoint kind, one tour
+    per lane: identical actions at every step, equal stats, K1 and K2
+    once per policy step."""
+    from ivlnce_tpu_torch.config import get_config
+
+    paths = write_checkpoint_kinds(tmp, get_config(CONFIG))
+    runs, actions = {}, {}
+    for kind, path in paths.items():
+        record, undo = _action_recorder()
+        try:
+            runs[kind] = phase_end_to_end(card, tmp, path, "iterative",
+                                          one_tour, run=f"ckpt_{kind}")
+        finally:
+            undo()
+        actions[kind] = record
+        steps = runs[kind]["policy_steps"]
+        launches = runs[kind]["launches"]
+        if (launches["accumulate"], launches["rasterize"]) != (steps, steps):
+            raise SystemExit(f"{kind}: {launches} launches for {steps} "
+                             "policy steps")
+    for kind in ("reference", "jax"):
+        if actions[kind] != actions["own"]:
+            differ = [i for i, (a, b) in enumerate(
+                zip(actions[kind], actions["own"])) if a != b]
+            raise SystemExit(
+                f"the {kind} checkpoint's actions differ from the port's "
+                f"own: {len(actions[kind])} vs {len(actions['own'])} steps, "
+                f"first difference at step {differ[:1]}")
+        if runs[kind]["stats"] != runs["own"]["stats"]:
+            raise SystemExit(f"the {kind} checkpoint's stats differ: "
+                             f"{runs[kind]['stats']} vs "
+                             f"{runs['own']['stats']}")
+    print(f"  [{card}] own, reference .pth and JAX pickle: "
+          f"{len(actions['own'])} policy steps of identical actions each, "
+          f"equal stats {runs['own']['stats']}")
+    return runs
+
+
+def count_policy_step_ranges(profile_dir: str) -> int:
+    """``policy_step`` host ranges in the one Chrome trace written to
+    ``profile_dir``."""
+    traces = glob.glob(os.path.join(profile_dir, "*.json"))
+    if len(traces) != 1:
+        raise SystemExit(f"expected one trace in {profile_dir}: {traces}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(e.get("name") == "policy_step"
+               and e.get("cat") == "user_annotation" for e in events)
+
+
+def phase_videos_and_trace(card: str, tmp: str, ckpt: str) -> dict:
+    """Phase 13b: the MapCMA episodic eval with videos on disk and the
+    on-demand trace of policy steps 3 to 22; two lanes, so that lanes
+    begin second episodes (``phase_end_to_end`` checks their restarts)
+    before ``EVAL.EPISODE_COUNT`` 3 ends the run."""
+    from ivlnce_tpu_torch.utils import viz
+
+    run = "map_episodic_videos"
+    video_dir = os.path.join(tmp, run + "_videos")
+    profile_dir = os.path.join(tmp, run + "_trace")
+    seen = {"frames": 0, "top_down": 0, "videos": []}
+    observations_to_image, generate_video = (viz.observations_to_image,
+                                             viz.generate_video)
+
+    def composing(observation, info):
+        seen["frames"] += 1
+        seen["top_down"] += "top_down_map_vlnce" in (info or {})
+        return observations_to_image(observation, info)
+
+    def writing(*args, **kwargs):
+        images = kwargs["images"]
+        seen["videos"].append(images[0].shape)
+        # the egocentric map panels: two 4x-upscaled 64 x 64 maps below
+        # the sensors, drawn in colours (not the padding's white)
+        panels = images[0][-4 * 64:, :2 * 4 * 64]
+        if images[0].shape[0] <= 4 * 64 or (panels == 255).all():
+            raise SystemExit("a video frame without the map panels")
+        return generate_video(*args, **kwargs)
+
+    viz.observations_to_image, viz.generate_video = composing, writing
+    try:
+        summary = phase_end_to_end(
+            card, tmp, ckpt, "map_episodic",
+            ("NUM_ENVIRONMENTS", "2", "EVAL.EPISODE_COUNT", "3",
+             "VIDEO_OPTION", "['disk']",
+             "VIDEO_DIR", video_dir, "TPU.profile_dir", profile_dir),
+            run=run)
+    finally:
+        viz.observations_to_image, viz.generate_video = (
+            observations_to_image, generate_video)
+    files = sorted(os.listdir(video_dir))
+    formats = sorted({os.path.splitext(f)[1] for f in files})
+    ranges = count_policy_step_ranges(profile_dir)
+    summary.update(videos=len(files), video_formats=formats,
+                   frames=seen["frames"], top_down_frames=seen["top_down"],
+                   frame_shape=list(seen["videos"][0]) if seen["videos"]
+                   else None, traced_policy_steps=ranges)
+    print(f"  [{card}] {len(files)} videos ({', '.join(formats)}) for "
+          f"{summary['episodes']} episodes; {seen['frames']} frames, "
+          f"{seen['top_down']} with the top-down map, first frame "
+          f"{summary['frame_shape']}; {ranges} policy_step ranges in the "
+          "trace")
+    if len(files) != summary["episodes"] or len(seen["videos"]) != len(files):
+        raise SystemExit(f"{len(files)} videos for {summary['episodes']} "
+                         "episodes")
+    if seen["top_down"] != seen["frames"] or not seen["frames"]:
+        raise SystemExit("TOP_DOWN_MAP_VLNCE was not measured at every "
+                         "frame")
+    if ranges != 20:
+        raise SystemExit(f"{ranges} policy_step ranges traced, not 20")
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # the port reads the host-phase switch at import (phase 13c)
+    os.environ["IVLNCE_PHASE_TIMES"] = "1"
     from ivlnce_tpu_torch.ops import kernels
     from ivlnce_tpu_torch.utils.device import resolve_device
 
@@ -1791,6 +2000,13 @@ def main() -> int:
                                              RXR_SEED),
                         get_config(RXR_CONFIG), rxr_ckpt)
         e2e["rxr"] = phase_end_to_end(card, tmp, rxr_ckpt, "rxr")
+
+        print("phase 13: the eval surface: checkpoint kinds, videos and "
+              "the trace (host phases: every run_exp eval above)")
+        for kind, run in phase_checkpoint_kinds(card, tmp,
+                                                one_tour).items():
+            e2e[f"ckpt_{kind}"] = run
+        e2e["map_episodic_videos"] = phase_videos_and_trace(card, tmp, ckpt)
 
     # each kernel's launches come from the path that runs it
     kernel_path = {"accumulate": "iterative", "rasterize": "iterative",

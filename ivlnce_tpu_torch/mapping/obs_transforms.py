@@ -305,7 +305,7 @@ class Mapper:
         )
         kwargs = {"known_map_max_points": config.TPU.known_map_max_points}
         if cls.predicted_semantics and not cls.known_maps:
-            kwargs["rednet"] = _random_rednet(config, device)
+            kwargs["rednet"] = _load_rednet(config, device)
         grid_cells = config.TPU.world_grid_cells
         if grid_cells == 0:
             # auto: size the grid from the split's scene geometry and
@@ -334,28 +334,30 @@ class Mapper:
         return cls(camera, dims, device, grid_cells=grid_cells, **kwargs)
 
 
-def _random_rednet(config, device: torch.device):
-    """RedNet with seeded random weights, as the JAX package falls back to
-    when the reference checkpoint is missing (obs_transforms.py:446-470).
-    Loading that checkpoint and a bfloat16 RedNet are not ported yet."""
+def _load_rednet(config, device: torch.device):
+    """RedNet with the reference's weights from ``REDNET_CHECKPOINT`` or,
+    when that file is missing, seeded random weights, as the JAX package
+    falls back to (obs_transforms.py:446-470). float32 only."""
+    from ivlnce_tpu_torch.models.checkpoint_io import load_rednet, merge_params
     from ivlnce_tpu_torch.models.rednet import RedNet
 
-    if os.path.exists(REDNET_CHECKPOINT):
-        raise NotImplementedError(
-            f"loading {REDNET_CHECKPOINT} waits for a later slice of the port"
-        )
     if config.TPU.compute_dtype != "float32":
         raise NotImplementedError(
             f"RedNet in {config.TPU.compute_dtype} waits for a later slice "
             "of the port"
         )
-    logging_util.logger.warning(
-        f"RedNet checkpoint missing at {REDNET_CHECKPOINT}; "
-        "using randomly initialized weights"
-    )
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         model = RedNet()
+    if os.path.exists(REDNET_CHECKPOINT):
+        model.load_state_dict(
+            merge_params(model.state_dict(), load_rednet(REDNET_CHECKPOINT))
+        )
+    else:
+        logging_util.logger.warning(
+            f"RedNet checkpoint missing at {REDNET_CHECKPOINT}; "
+            "using randomly initialized weights"
+        )
     return model.to(device).eval()
 
 

@@ -58,6 +58,14 @@ class CMAPolicy(nn.Module):
 
     @classmethod
     def from_config(cls, config, observation_info):
+        # the JAX package casts the encoders to TPU.compute_dtype
+        # (policy.py:65); the port's encoders run in float32 only
+        if config.TPU.compute_dtype != "float32":
+            raise NotImplementedError(
+                f"TPU.compute_dtype {config.TPU.compute_dtype} waits for "
+                "the slice of the port that brings bfloat16 encoders; "
+                "set it to float32"
+            )
         return cls(config, observation_info)
 
     @property

@@ -17,6 +17,7 @@ import json
 import numbers
 import os
 import time
+import zipfile
 from collections import defaultdict
 from typing import Any, Dict, List, Optional
 
@@ -26,8 +27,10 @@ from torch.profiler import record_function
 
 from ivlnce_tpu_torch.envs.vector_env import construct_envs_auto_reset_false
 from ivlnce_tpu_torch.mapping.obs_transforms import get_active_obs_transforms
+from ivlnce_tpu_torch.models import checkpoint_io as cio
+from ivlnce_tpu_torch.models.convert import params_from_jax
 from ivlnce_tpu_torch.tasks.tour_ndtw import compute_tour_ndtw
-from ivlnce_tpu_torch.utils import batching, logging_util
+from ivlnce_tpu_torch.utils import batching, logging_util, profiling, viz
 from ivlnce_tpu_torch.utils.batching import batch_obs, extract_instruction_tokens
 from ivlnce_tpu_torch.utils.device import resolve_device
 from ivlnce_tpu_torch.utils.registry import registry
@@ -52,7 +55,28 @@ def save_checkpoint(policy, config, path: str, **meta) -> None:
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
-    return torch.load(path, map_location="cpu", weights_only=True)
+    """Read a checkpoint of any kind the JAX package's eval reads, as a
+    dict whose ``state_dict`` is in the port's names (JAX
+    base_trainer.py:296-326):
+
+    - a zip file (``torch.save``): the port's own or a reference
+      training checkpoint, which share the ``net.`` /
+      ``action_distribution.`` layout;
+    - an Orbax directory (``path`` or ``path + ".orbax"``): raises;
+    - anything else: a pickle of the JAX trainer, whose ``params`` tree
+      goes through ``params_from_jax``; its optax ``optim_state`` comes
+      back inert."""
+    if os.path.isdir(path) or os.path.isdir(path + ".orbax"):
+        raise NotImplementedError(
+            f"{path} is an Orbax checkpoint directory: reading it needs "
+            "orbax and tensorstore, which the PyTorch port does not use; "
+            "evaluate a pickle checkpoint (TPU.async_checkpointing False) "
+            "or a reference .pth instead"
+        )
+    if zipfile.is_zipfile(path):
+        return cio.load_reference_policy_checkpoint(path)
+    ckpt = cio.load_jax_pickle(path)
+    return {**ckpt, "state_dict": params_from_jax(ckpt["params"])}
 
 
 class BaseVLNCETrainer:
@@ -69,6 +93,7 @@ class BaseVLNCETrainer:
         self._txt_cache_tokens = None
         self._device_step = None
         self._generator = None
+        self._pending_maps = None
         # policy steps and instruction bi-LSTM runs (once per episode
         # change, not per step) over the trainer's evals
         self.policy_steps = 0
@@ -95,7 +120,11 @@ class BaseVLNCETrainer:
             policy = policy_cls.from_config(
                 config, self._observation_info(config)
             )
-        policy.load_state_dict(load_checkpoint(checkpoint_path)["state_dict"])
+        state = self._load_external_encoders(config, policy.state_dict())
+        state = cio.merge_params(
+            state, load_checkpoint(checkpoint_path)["state_dict"]
+        )
+        policy.load_state_dict(state)
         self.policy = policy.to(self.device).eval()
         n_params = sum(p.numel() for p in policy.parameters())
         logger.info(f"Loaded weights from checkpoint: {checkpoint_path}")
@@ -108,6 +137,24 @@ class BaseVLNCETrainer:
         if config.EVAL.SAMPLE:
             self._generator = torch.Generator(device=self.device)
             self._generator.manual_seed(config.TASK_CONFIG.SEED)
+
+    @staticmethod
+    def _load_external_encoders(config, state):
+        """Frozen external weights merged into the policy's ``state``: the
+        DDPPO depth encoder and the pretrained map encoder (JAX
+        base_trainer.py:233-253). A missing file keeps the seeded
+        weights."""
+        ddppo = config.MODEL.DEPTH_ENCODER.ddppo_checkpoint
+        if ddppo != "NONE" and os.path.exists(ddppo):
+            state = cio.merge_params(state,
+                                     cio.load_ddppo_depth_encoder(ddppo))
+            logger.info(f"Loaded DDPPO depth encoder: {ddppo}")
+        sm = config.MODEL.SEMANTIC_MAP_ENCODER
+        if sm.from_pretrained and os.path.exists(sm.checkpoint):
+            state = cio.merge_params(state,
+                                     cio.load_map_encoder(sm.checkpoint))
+            logger.info(f"Loaded map encoder: {sm.checkpoint}")
+        return state
 
     def _setup_obs_transforms(self, config) -> None:
         """The enabled mapper obs transform and its device step; none for
@@ -194,13 +241,20 @@ class BaseVLNCETrainer:
         return dobs
 
     def _policy_step(self, batch, reset_masks, rnn_states, prev_actions,
-                     masks, iterative: bool = True):
+                     masks, iterative: bool = True, need_maps: bool = False):
         """Mapper step, when a transform is enabled, then ``act_iterative``
         (``masks`` is (agent, sim, tour, action)) or, with ``iterative``
         False, ``act`` (``masks`` is (not_done,)) for the live lanes.
         Returns (actions (live, 1) host array, full-width rnn_states on
-        the device)."""
+        the device). With ``need_maps`` (videos) the step's egocentric
+        maps are kept for ``_materialize_maps``; otherwise they stay on
+        the device."""
         self.policy_steps += 1
+        # an on-demand trace of policy steps [3, 23) (TPU.profile_dir)
+        if self.policy_steps == 3:
+            profiling.maybe_start_trace(self.config, self.device)
+        elif self.policy_steps == 23:
+            profiling.maybe_stop_trace()
         if self._lane_rows is None or rnn_states.shape[0] != self._num_rows:
             self._reset_lanes(rnn_states.shape[0])
         rows = self._lane_rows
@@ -220,23 +274,56 @@ class BaseVLNCETrainer:
 
         masks_full = [dev(m, torch.float32) for m in masks]
         prev_full = dev(prev_actions, torch.int64)
-        if transform is not None:
-            reset_full = self._expand_rows(
-                np.asarray(reset_masks, np.float32).reshape(-1, 1)
-            )
-            with record_function("mapper"):
-                state, occ, sem = self._device_step(
-                    transform.state, obs, reset_full.reshape(-1),
-                    transform.rednet,
+        self._pending_maps = None
+        with profiling.range_context("policy_step"):
+            if transform is not None:
+                reset_full = self._expand_rows(
+                    np.asarray(reset_masks, np.float32).reshape(-1, 1)
                 )
-            transform.state = state
-            obs = dict(obs, occupancy_map=occ, semantic_map=sem)
-        act = self.policy.act_iterative if iterative else self.policy.act
-        out = act(obs, rnn_states, prev_full, *masks_full,
-                  generator=self._generator)
-        return out.actions.cpu().numpy()[rows], out.rnn_states
+                with record_function("mapper"):
+                    state, occ, sem = self._device_step(
+                        transform.state, obs, reset_full.reshape(-1),
+                        transform.rednet,
+                    )
+                transform.state = state
+                obs = dict(obs, occupancy_map=occ, semantic_map=sem)
+                if need_maps:
+                    self._pending_maps = (occ, sem, rows)
+            act = self.policy.act_iterative if iterative else self.policy.act
+            out = act(obs, rnn_states, prev_full, *masks_full,
+                      generator=self._generator)
+            actions = out.actions.cpu().numpy()[rows]
+        return actions, out.rnn_states
 
-    def _pause_envs(self, envs_to_pause, envs, *arrays, batch=None):
+    def _materialize_maps(self, batch) -> None:
+        """Read the maps kept by ``_policy_step(need_maps=True)`` into
+        ``batch`` (called after ``envs.step_async``, so the copy overlaps
+        the simulators' step)."""
+        if self._pending_maps is None:
+            return
+        occ, sem, rows = self._pending_maps
+        self._pending_maps = None
+        batch["occupancy_map"] = occ.cpu().numpy()[rows]
+        batch["semantic_map"] = sem.cpu().numpy()[rows]
+
+    @staticmethod
+    def _video_frame(observation, info, episode, batch, i):
+        """One lane's video frame: the sensors, the top-down map, the
+        instruction and, with a mapper, the egocentric maps."""
+        frame = viz.observations_to_image(observation, info)
+        frame = viz.append_text_to_image(
+            frame, episode.get("instruction_text", "")
+        )
+        if "occupancy_map" in batch:
+            map_frame = viz.append_image_horizontally([
+                viz.visualize_ego_occupancy_map(batch["occupancy_map"][i]),
+                viz.visualize_ego_semantic_map(batch["semantic_map"][i]),
+            ])
+            frame = viz.append_image_vertically([frame, map_frame])
+        return frame
+
+    def _pause_envs(self, envs_to_pause, envs, *arrays, batch=None,
+                    rgb_frames=None):
         if len(envs_to_pause) > 0:
             state_index = list(range(envs.num_envs))
             for idx in reversed(envs_to_pause):
@@ -251,7 +338,9 @@ class BaseVLNCETrainer:
                         batch[k] = [v[i] for i in state_index]
                     else:
                         batch[k] = np.asarray(v)[keep]
-        return (envs,) + arrays + (batch,)
+            if rgb_frames is not None:
+                rgb_frames = [rgb_frames[i] for i in state_index]
+        return (envs,) + arrays + (batch, rgb_frames)
 
     # -- eval entry point ---------------------------------------------------------
     def eval(self) -> None:
@@ -327,17 +416,29 @@ class BaseVLNCETrainer:
         opts.SHUFFLE_TOURS = False
         opts.SHUFFLE_EPISODES = False
         config.IL.ckpt_to_load = checkpoint_path
-        config.freeze()
         if len(config.VIDEO_OPTION) > 0:
-            raise NotImplementedError("videos wait for a later slice")
-        with torch.inference_mode():
-            if config.TASK_CONFIG.ENVIRONMENT.ITERATIVE.ENABLED:
-                return self._eval_checkpoint_iterative(
+            # the drawn map measure only when videos are asked for
+            # (base_il_trainer.py:352-373)
+            os.makedirs(config.VIDEO_DIR, exist_ok=True)
+            measurements = config.TASK_CONFIG.TASK.MEASUREMENTS
+            if "TOP_DOWN_MAP_VLNCE" not in measurements:
+                measurements.append("TOP_DOWN_MAP_VLNCE")
+        config.freeze()
+        # per-checkpoint phase attribution (the accumulators are
+        # process-wide)
+        profiling.reset_phases()
+        try:
+            with torch.inference_mode():
+                if config.TASK_CONFIG.ENVIRONMENT.ITERATIVE.ENABLED:
+                    return self._eval_checkpoint_iterative(
+                        config, writer, checkpoint_index
+                    )
+                return self._eval_checkpoint_episodic(
                     config, writer, checkpoint_index
                 )
-            return self._eval_checkpoint_episodic(
-                config, writer, checkpoint_index
-            )
+        finally:
+            # a trace window an eval left open (a short run, an error)
+            profiling.maybe_stop_trace()
 
     def _eval_checkpoint_episodic(self, config, writer,
                                   checkpoint_index: int = 0):
@@ -371,23 +472,35 @@ class BaseVLNCETrainer:
         if config.EVAL.EPISODE_COUNT > -1:
             episodes_to_eval = min(config.EVAL.EPISODE_COUNT,
                                    episodes_to_eval)
+        videos = len(config.VIDEO_OPTION) > 0
+        rgb_frames: List[List] = [[] for _ in range(envs.num_envs)]
         start_time = time.time()
         env_steps = 0
         while envs.num_envs > 0 and len(stats_episodes) < episodes_to_eval:
             env_steps += envs.num_envs
             current_episodes = self._current_episode_info(envs)
             # the not-done masks restart the map and the GRUs
-            actions, rnn_states = self._policy_step(
-                batch, not_done_masks, rnn_states, prev_actions,
-                (not_done_masks,), iterative=False,
-            )
+            with profiling.wall_range("policy_step"):
+                actions, rnn_states = self._policy_step(
+                    batch, not_done_masks, rnn_states, prev_actions,
+                    (not_done_masks,), iterative=False, need_maps=videos,
+                )
             prev_actions = actions
-            outputs = envs.step([int(a[0]) for a in actions])
+            envs.step_async([int(a[0]) for a in actions])
+            with profiling.wall_range("materialize_maps"):
+                self._materialize_maps(batch)
+            with profiling.wall_range("env_step_wait"):
+                outputs = envs.step_wait()
             observations, _, dones, infos = (list(x) for x in zip(*outputs))
             not_done_masks = np.array(
                 [[0] if done else [1] for done in dones], np.uint8
             )
             for i in range(envs.num_envs):
+                if videos:
+                    rgb_frames[i].append(self._video_frame(
+                        observations[i], infos[i], current_episodes[i],
+                        batch, i,
+                    ))
                 if not dones[i]:
                     continue
                 stats_episodes[current_episodes[i]["episode_id"]] = {
@@ -402,23 +515,40 @@ class BaseVLNCETrainer:
                     f"({round(elapsed)}s, "
                     f"{env_steps / max(elapsed, 1e-6):.1f} env steps/s)"
                 )
+                self._log_phases()
+                if videos:
+                    ep_id = current_episodes[i]["episode_id"]
+                    viz.generate_video(
+                        video_option=config.VIDEO_OPTION,
+                        video_dir=config.VIDEO_DIR,
+                        images=rgb_frames[i],
+                        episode_id=ep_id,
+                        checkpoint_idx=checkpoint_index,
+                        metrics={"spl": stats_episodes[ep_id].get("spl", 0.0)},
+                        tb_writer=writer,
+                    )
+                    rgb_frames[i] = []
 
-            observations = self._extract_tokens(observations)
-            batch = batch_obs(observations)
+            with profiling.wall_range("batch_obs"):
+                observations = self._extract_tokens(observations)
+                batch = batch_obs(observations)
 
             next_episodes = self._current_episode_info(envs)
             envs_to_pause = [
                 i for i in range(envs.num_envs)
                 if next_episodes[i]["episode_id"] in stats_episodes
             ]
-            envs, not_done_masks, prev_actions, batch = self._pause_envs(
+            (
+                envs, not_done_masks, prev_actions, batch, rgb_frames,
+            ) = self._pause_envs(
                 envs_to_pause, envs, not_done_masks, prev_actions,
-                batch=batch,
+                batch=batch, rgb_frames=rgb_frames,
             )
 
         envs.close()
         self.env_steps = env_steps
         self.eval_seconds = time.time() - start_time
+        self.episodes_evaluated = len(stats_episodes)
         for transform in self.obs_transforms:
             transform.warn_if_dropped("episodic eval")
 
@@ -482,6 +612,8 @@ class BaseVLNCETrainer:
         stats_tours: Dict[str, Dict] = defaultdict(dict)
         dtw_data: Dict[str, List] = defaultdict(list)
         episodes_evaluated = 0
+        videos = len(config.VIDEO_OPTION) > 0
+        rgb_frames: List[List] = [[] for _ in range(envs.num_envs)]
         start_time = time.time()
         env_steps = 0
         while envs.num_envs > 0:
@@ -490,12 +622,22 @@ class BaseVLNCETrainer:
             reset_masks = (
                 agent_masks if map_reset == "episodic" else tour_masks
             )
-            actions, rnn_states = self._policy_step(
-                batch, reset_masks, rnn_states, prev_actions,
-                (agent_masks, sim_masks, tour_masks, action_masks),
-            )
+            with profiling.wall_range("policy_step"):
+                actions, rnn_states = self._policy_step(
+                    batch, reset_masks, rnn_states, prev_actions,
+                    (agent_masks, sim_masks, tour_masks, action_masks),
+                    need_maps=videos,
+                )
+            # the JAX loop's host copy of the actions; the port's device
+            # readback falls inside policy_step
+            with profiling.wall_range("action_readback"):
+                actions = np.array(actions)
             prev_actions = actions
-            outputs = envs.step([int(a[0]) for a in actions])
+            envs.step_async([int(a[0]) for a in actions])
+            with profiling.wall_range("materialize_maps"):
+                self._materialize_maps(batch)
+            with profiling.wall_range("env_step_wait"):
+                outputs = envs.step_wait()
             (
                 observations, _, agent_dones, sim_dones, tour_dones,
                 produce_actions, infos,
@@ -514,6 +656,11 @@ class BaseVLNCETrainer:
             )
 
             for i in range(envs.num_envs):
+                if videos:
+                    rgb_frames[i].append(self._video_frame(
+                        observations[i], infos[i], current_episodes[i],
+                        batch, i,
+                    ))
                 if not agent_dones[i]:
                     continue
                 ep_id = current_episodes[i]["episode_id"]
@@ -531,17 +678,34 @@ class BaseVLNCETrainer:
                         f"{episodes_evaluated} ({round(elapsed)}s, "
                         f"{env_steps / max(elapsed, 1e-6):.1f} env steps/s)"
                     )
+                    self._log_phases()
                 if not sim_dones[i]:
                     continue
                 if "dtw_data" in infos[i]:
                     dtw_data[tour_id].extend(infos[i]["dtw_data"])
+                if videos and rgb_frames[i]:
+                    viz.generate_video(
+                        video_option=config.VIDEO_OPTION,
+                        video_dir=config.VIDEO_DIR,
+                        images=rgb_frames[i],
+                        episode_id=ep_id,
+                        checkpoint_idx=checkpoint_index,
+                        metrics={
+                            "spl": stats_tours[tour_id]
+                            .get(ep_id, {})
+                            .get("spl", 0.0)
+                        },
+                        tb_writer=writer,
+                    )
+                    rgb_frames[i] = []
                 observations[i], tour_done, produce_action = envs.reset_at(i)
                 tour_masks[i] = int(not tour_done)
                 action_masks[i] = int(produce_action)
                 prev_actions[i] = 0
 
-            observations = self._extract_tokens(observations)
-            batch = batch_obs(observations)
+            with profiling.wall_range("batch_obs"):
+                observations = self._extract_tokens(observations)
+                batch = batch_obs(observations)
 
             next_episodes = self._current_episode_info(envs)
             envs_to_pause = []
@@ -553,15 +717,17 @@ class BaseVLNCETrainer:
                     envs_to_pause.append(i)
             (
                 envs, agent_masks, sim_masks, tour_masks,
-                action_masks, prev_actions, batch,
+                action_masks, prev_actions, batch, rgb_frames,
             ) = self._pause_envs(
                 envs_to_pause, envs, agent_masks, sim_masks,
                 tour_masks, action_masks, prev_actions, batch=batch,
+                rgb_frames=rgb_frames,
             )
 
         envs.close()
         self.env_steps = env_steps
         self.eval_seconds = time.time() - start_time
+        self.episodes_evaluated = episodes_evaluated
         for transform in self.obs_transforms:
             transform.warn_if_dropped("iterative eval")
 
@@ -614,6 +780,12 @@ class BaseVLNCETrainer:
             logger.info(f"Average episode {k}: {v:.6f}")
             writer.add_scalar(f"eval_{split}_{k}", v, checkpoint_index + 1)
         return dict(aggregated_stats)
+
+    @staticmethod
+    def _log_phases() -> None:
+        report = profiling.phase_report()
+        if report:
+            logger.info(f"phase times: {report}")
 
     @staticmethod
     def _current_episode_info(envs) -> List[Dict]:

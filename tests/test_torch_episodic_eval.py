@@ -30,10 +30,12 @@ import ivlnce_tpu.tasks  # noqa: F401
 import ivlnce_tpu.trainers  # noqa: F401
 from ivlnce_tpu import native
 from ivlnce_tpu.config import get_config as jax_config
+from ivlnce_tpu.utils import viz as jax_viz
 from ivlnce_tpu.utils.registry import registry as jax_registry
 from ivlnce_tpu_torch.config import get_config as torch_config
 from ivlnce_tpu_torch.models.convert import params_from_jax
 from ivlnce_tpu_torch.run import register_all
+from ivlnce_tpu_torch.utils import viz as torch_viz
 from ivlnce_tpu_torch.utils.registry import registry as torch_registry
 from tests.test_torch_eval import (  # noqa: F401 (a fixture)
     CONFIG,
@@ -77,10 +79,13 @@ def _rxr_configure(config, root, side):
 
 
 def _eval_pair(tmp_path, monkeypatch, config_path, opts, configure, seed,
-               episode_count=None):
+               episode_count=None, videos=False):
     """Both evals from one checkpoint of weights from ``seed`` (chosen so
     that the random policy takes more than one kind of action); returns
-    the two configs and trainers and the port's actions per step."""
+    the two configs and trainers, the port's actions per step and its
+    video frames by episode. With
+    ``videos``, both evals write ``VIDEO_OPTION ['disk']`` videos and the
+    frames each passes to ``generate_video`` must be identical."""
     os.chdir(REPO)
     root = str(tmp_path)
     ds = os.path.join(root, "ds")
@@ -93,6 +98,9 @@ def _eval_pair(tmp_path, monkeypatch, config_path, opts, configure, seed,
         cfg.IL.DAGGER.lmdb_features_dir = os.path.join(root, side, "traj")
         if episode_count is not None:
             cfg.EVAL.EPISODE_COUNT = episode_count
+        if videos:
+            cfg.VIDEO_OPTION = ["disk"]
+            cfg.VIDEO_DIR = os.path.join(root, side, "videos")
         cfg.freeze()
         cfgs[side] = cfg
     jcfg, tcfg = cfgs["jax"], cfgs["torch"]
@@ -107,6 +115,14 @@ def _eval_pair(tmp_path, monkeypatch, config_path, opts, configure, seed,
                 "config": tcfg.to_dict()}, tcfg.EVAL_CKPT_PATH_DIR)
 
     actions = {"jax": [], "torch": []}
+    frames = {"jax": {}, "torch": {}}
+    for side, module in (("jax", jax_viz), ("torch", torch_viz)):
+        def capture(*args, _side=side, _write=module.generate_video,
+                    **kwargs):
+            frames[_side][kwargs["episode_id"]] = list(kwargs["images"])
+            return _write(*args, **kwargs)
+
+        monkeypatch.setattr(module, "generate_video", capture)
     monkeypatch.setattr(native, "dtw_library", lambda: None)
     # the JAX trainer's own initialisation (eager, tens of seconds for the
     # ResNet-50s) takes these weights, which the checkpoint overwrites
@@ -137,7 +153,14 @@ def _eval_pair(tmp_path, monkeypatch, config_path, opts, configure, seed,
     assert actions["torch"] == actions["jax"]
     assert len(actions["torch"]) >= 4
     assert len({a for step in actions["torch"] for a in step}) > 1
-    return jcfg, tcfg, jt, tt, actions["torch"]
+    assert frames["torch"].keys() == frames["jax"].keys()
+    for ep, images in frames["jax"].items():
+        assert len(frames["torch"][ep]) == len(images), ep
+        for t_img, j_img in zip(frames["torch"][ep], images):
+            np.testing.assert_array_equal(t_img, j_img)
+    if videos:
+        assert len(frames["torch"]) == len(os.listdir(tcfg.VIDEO_DIR))
+    return jcfg, tcfg, jt, tt, actions["torch"], frames["torch"]
 
 
 def _assert_stats_equal(jcfg, tcfg, pattern):
@@ -152,18 +175,27 @@ def _assert_stats_equal(jcfg, tcfg, pattern):
 def test_mapcma_episodic_eval_matches_jax(tmp_path, monkeypatch,
                                           one_torch_thread):
     # EVAL.EPISODE_COUNT 3 of the 4 episodes; each lane's second episode
-    # runs over a map restarted at the boundary
-    jcfg, tcfg, _, tt, _ = _eval_pair(tmp_path, monkeypatch, EPISODIC, None,
-                                   _configure, 5, episode_count=3)
+    # runs over a map restarted at the boundary. Videos on both sides:
+    # every frame, the top-down map and the egocentric map panels
+    # included, identical
+    jcfg, tcfg, _, tt, _, frames = _eval_pair(
+        tmp_path, monkeypatch, EPISODIC, None, _configure, 5,
+        episode_count=3, videos=True)
     _assert_stats_equal(jcfg, tcfg, "stats_ckpt_0_val_seen.json")
     assert type(tt.obs_transforms[0]).__name__ == (
         "GTSemanticsIterativeMapper")
+    for images in frames.values():
+        top = images[0][:64]
+        # the 64-px RGB and depth views, then the top-down map beside them
+        assert (top != 255).any(axis=(0, 2))[128:].any()
+        # the occupancy and semantic panels (4x the 64-cell map) below
+        assert images[0].shape[0] >= 64 + 4 * 64
 
 
 def test_rxr_episodic_eval_matches_jax(tmp_path, monkeypatch,
                                        one_torch_thread):
-    jcfg, tcfg, jt, tt, steps = _eval_pair(tmp_path, monkeypatch, RXR, None,
-                                    _rxr_configure, 3)
+    jcfg, tcfg, jt, tt, steps, _ = _eval_pair(tmp_path, monkeypatch, RXR,
+                                              None, _rxr_configure, 3)
     _assert_stats_equal(jcfg, tcfg, "stats_ckpt_0_val_seen.json")
     assert tt._txt_cache_tokens.shape[1:] == (512, 768)
     assert jt._txt_cache_tokens.shape == tt._txt_cache_tokens.shape
@@ -178,8 +210,8 @@ def test_rxr_episodic_eval_matches_jax(tmp_path, monkeypatch,
 
 def test_latent_tour_eval_matches_jax(tmp_path, monkeypatch,
                                       one_torch_thread):
-    jcfg, tcfg, _, tt, _ = _eval_pair(tmp_path, monkeypatch, CONFIG,
-                                   LATENT_TOUR, _configure, 1)
+    jcfg, tcfg, _, tt, _, _ = _eval_pair(tmp_path, monkeypatch, CONFIG,
+                                         LATENT_TOUR, _configure, 1)
     assert tt.obs_transforms == []
     assert tt.policy.num_recurrent_layers == 3
     stats = _assert_stats_equal(jcfg, tcfg,

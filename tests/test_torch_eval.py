@@ -16,6 +16,7 @@ import json
 import os
 import pickle
 import random
+import shutil
 
 import jax
 import numpy as np
@@ -31,7 +32,6 @@ from ivlnce_tpu import native
 from ivlnce_tpu.config import get_config as jax_config
 from ivlnce_tpu.utils.registry import registry as jax_registry
 from ivlnce_tpu_torch.config import get_config as torch_config
-from ivlnce_tpu_torch.models.convert import params_from_jax
 from ivlnce_tpu_torch.run import register_all
 from ivlnce_tpu_torch.utils.registry import registry as torch_registry
 
@@ -128,14 +128,17 @@ def test_iterative_eval_matches_jax(tmp_path, monkeypatch,
     jcfg = _configure(jax_config(CONFIG), ds, "jax")
     register_all()
     tcfg = _configure(torch_config(CONFIG), ds, "torch")
+    tcfg.defrost()
+    tcfg.TPU.profile_dir = os.path.join(root, "trace")
+    tcfg.freeze()
 
     info = {"depth_hw": 64, "map_hw": 64}
     jpol = jax_registry.get_policy("MapCMAPolicy").from_config(jcfg, info)
     params = jax.device_get(jpol.init_params(jax.random.PRNGKey(3)))
     with open(jcfg.EVAL_CKPT_PATH_DIR, "wb") as f:
         pickle.dump({"params": params, "config": jcfg.to_dict()}, f)
-    torch.save({"state_dict": params_from_jax(params),
-                "config": tcfg.to_dict()}, tcfg.EVAL_CKPT_PATH_DIR)
+    # the port evaluates the JAX package's pickle itself
+    shutil.copy(jcfg.EVAL_CKPT_PATH_DIR, tcfg.EVAL_CKPT_PATH_DIR)
 
     actions = {"jax": [], "torch": []}
     monkeypatch.setattr(native, "dtw_library", lambda: None)
@@ -178,6 +181,14 @@ def test_iterative_eval_matches_jax(tmp_path, monkeypatch,
     all_stats = _load(tcfg.RESULTS_DIR,
                       "iterative_all_stats_ckpt_0_val_seen.json")
     assert sum(len(v) for v in all_stats.values()) == 4
+    # TPU.profile_dir: one trace of policy steps 3 to 22
+    assert tt.policy_steps > 23
+    traces = glob.glob(os.path.join(tcfg.TPU.profile_dir, "*.json"))
+    assert len(traces) == 1, traces
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    assert sum(e.get("name") == "policy_step"
+               and e.get("cat") == "user_annotation" for e in events) == 20
 
 
 @pytest.mark.parametrize("device", [None, "cuda"])

@@ -205,14 +205,15 @@ def test_float_keys_round_trip_and_keep_order(rng):
 TRAINERS = ("dagger", "iterative_collection_dagger", "iterative_dagger")
 
 
-def _trainer(name, tmp_path, *opts):
+def _trainer(name, tmp_path, *opts,
+             config_path="configs/fake/map_cma_eval_iterative.yaml"):
     from ivlnce_tpu_torch.config import get_config
     from ivlnce_tpu_torch.run import register_all
     from ivlnce_tpu_torch.utils.registry import registry
 
     register_all()
     config = get_config(
-        "configs/fake/map_cma_eval_iterative.yaml",
+        config_path,
         ["TRAINER_NAME", name,
          "CHECKPOINT_FOLDER", str(tmp_path / "ckpts"),
          "RESULTS_DIR", str(tmp_path / "results"), *opts])
@@ -237,10 +238,39 @@ def test_training_waits_for_its_slice(name, tmp_path):
         _trainer(name, tmp_path).train()
 
 
-def test_videos_still_raise(tmp_path):
-    trainer = _trainer("dagger", tmp_path, "VIDEO_OPTION", "['disk']")
-    with pytest.raises(NotImplementedError, match="videos"):
-        trainer._eval_checkpoint(str(tmp_path / "ckpt.0.pth"), None)
+def test_eval_writes_one_video_per_episode(tmp_path, caplog):
+    """A port eval with ``VIDEO_OPTION ['disk']`` (the MapCMA episodic
+    eval, 64x64 sensors, hidden 64, 4-step episodes) writes one video per
+    evaluated episode."""
+    import re
+
+    from ivlnce_tpu_torch.trainers.base_trainer import save_checkpoint
+    from ivlnce_tpu_torch.utils.registry import registry
+
+    ckpt = str(tmp_path / "ckpts" / "ckpt.0.pth")
+    opts = ["VIDEO_OPTION", "['disk']", "VIDEO_DIR", str(tmp_path / "videos"),
+            "TENSORBOARD_DIR", str(tmp_path / "tb"),
+            "EVAL_CKPT_PATH_DIR", ckpt, "NUM_ENVIRONMENTS", "2",
+            "EVAL.EPISODE_COUNT", "2", "MODEL.STATE_ENCODER.hidden_size",
+            "64", "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", "4"]
+    for sensor in ("DEPTH_SENSOR", "RGB_SENSOR"):
+        for side in ("HEIGHT", "WIDTH"):
+            opts += [f"TASK_CONFIG.SIMULATOR.{sensor}.{side}", "64"]
+    trainer = _trainer("dagger", tmp_path, *opts,
+                       config_path="configs/fake/map_cma_eval_episodic.yaml")
+    torch.manual_seed(0)
+    policy = registry.get_policy("MapCMAPolicy").from_config(
+        trainer.config, {"depth_hw": 64, "map_hw": 64})
+    save_checkpoint(policy, trainer.config, ckpt)
+    with caplog.at_level("INFO", logger="ivlnce_tpu_torch"):
+        trainer.eval()
+    episodes = int(re.search(r"Episodes evaluated: (\d+)",
+                             caplog.text).group(1))
+    videos = sorted(os.listdir(tmp_path / "videos"))
+    assert episodes >= 2
+    assert len(videos) == episodes
+    assert len({v.split("-ckpt=")[0] for v in videos}) == episodes
+    assert all(v.startswith("episode=") for v in videos)
 
 
 @pytest.mark.parametrize("module", (
@@ -249,6 +279,9 @@ def test_videos_still_raise(tmp_path):
     "trainers/dagger_trainer.py",
     "trainers/iterative_collection_dagger_trainer.py",
     "trainers/iterative_dagger_trainer.py", "run.py",
+    "envs/habitat_backend.py", "tasks/maps.py", "utils/viz.py",
+    "utils/profiling.py", "models/checkpoint_io.py",
+    "mapping/obs_transforms.py",
 ))
 def test_latent_and_episodic_modules_stand_alone(module):
     """The modules of the LatentCMA and episodic evals, each on its own:
