@@ -35,10 +35,10 @@ Phases (any failure ends the run with a nonzero exit):
    (configs/fake/map_cma_eval_iterative.yaml, seeded random weights),
    with the kernels' launch counters set to 0 before and read after (and
    K3's first design's counter unchanged);
-7. the same evaluation again with a window of policy steps traced by
-   ``torch.profiler``: the device time of each named range of the step
-   (mapper, semantics, encoders, GRU + attention, instruction encoder)
-   and the card's busy share;
+7. the same evaluation again, over one tour per lane, with a window of
+   policy steps traced by ``torch.profiler``: the device time of each
+   named range of the step (mapper, semantics, encoders, GRU +
+   attention, instruction encoder) and the card's busy share;
 8. the known-map evaluation (configs/fake/map_cma_eval_known.yaml, K3 and
    K2) through ``run_exp`` at full width;
 9. the predicted-semantics evaluation (PredictedSemanticsIterativeMapper:
@@ -64,7 +64,21 @@ Phases (any failure ends the run with a nonzero exit):
    episode whose frames carry the top-down map and the egocentric map
    panels; a Chrome trace holding 20 ``policy_step`` ranges); (c) every
    ``run_exp`` eval above prints its host-phase split
-   (``IVLNCE_PHASE_TIMES``, set before the port is imported).
+   (``IVLNCE_PHASE_TIMES``, set before the port is imported);
+14. training at full width, the config's 2 lanes, 30-step episodes,
+   batches of 5, two epochs: (a) MapCMA teacher forcing
+   (configs/fake/map_cma_train_tf.yaml, iterative collection with the
+   GT-semantics mapper) through ``run_exp(..., "train")``: K1 and K2 once
+   per collection step, finite losses, checkpoints with the optimizer
+   state; collection env steps/s, train steps/s and rows/s, the run's
+   host-phase split and peak memory; the trained checkpoint evaluated on
+   the card over one tour per lane; (b) one train step of a batch of 5
+   from that store, card against CPU: loss terms, every gradient, the map
+   BatchNorm statistics pass; (c) LatentCMA (latent_cma_train.yaml, the
+   ``dagger`` trainer): no mapper kernel, depth and RGB features stored;
+   (d) 20 of (a)'s train steps traced, device time by range
+   (train_encode, train_rnn, train_loss, backward, optimizer,
+   map_bn_stats) and the busy share.
 
 Prints the kernels as one JSON line and, last, the device as JSON.
 Imports nothing of JAX.
@@ -194,7 +208,7 @@ def cuda_ms(fn, waits_on_card: bool = False) -> float:
     return a.elapsed_time(b)
 
 
-# -- the seeded walk -----------------------------------------------------------
+# -- the seeded walk ----------------------------------------------------------
 def walk(batch: int, hw: int, steps: int, seed: int):
     """Per-step mapper inputs: a walk with turns, a teleport at step 6
     (lane 0 jumps 30 m, so its later frames fall partly outside a 1024^2
@@ -1367,16 +1381,17 @@ def one_tour_per_lane(tmp: str) -> tuple:
             "EVAL.ITERATIVE_GT_PATHS", paths[1])
 
 
-def host_phases(trainer) -> dict:
-    """The eval's host-phase split (``utils/profiling.wall_range``, reset
-    at each checkpoint's start): seconds, spans and share of the eval
-    loop's wall time per phase, the rest as ``other``."""
+def host_phases(trainer, wall=None) -> dict:
+    """The run's host-phase split (``utils/profiling.wall_range``, reset
+    at each checkpoint's start and at a training run's): seconds, spans and
+    share of the loop's wall time (the eval loop's unless ``wall`` is
+    given) per phase, the rest as ``other``."""
     from ivlnce_tpu_torch.utils import profiling
 
     if not profiling._PHASES_ON:
         raise SystemExit("IVLNCE_PHASE_TIMES was not set before the port "
                          "was imported")
-    wall = trainer.eval_seconds
+    wall = trainer.eval_seconds if wall is None else wall
     out = {k: {"s": v, "spans": profiling._phase_counts[k],
                "share": v / wall}
            for k, v in profiling._phase_times.items()}
@@ -1528,17 +1543,17 @@ def _innermost(ranges, starts, ts):
     return None
 
 
-def attribute_device_time(trace: dict) -> dict:
+def attribute_device_time(trace: dict, names=RANGES) -> dict:
     """Device microseconds of a Chrome trace by the named range its launch
     fell in. A kernel or copy is matched to its launching runtime call by
     the CUPTI correlation id; the call's host time places it in the
-    innermost ``record_function`` range of ``RANGES``, or outside them."""
+    innermost ``record_function`` range of ``names``, or outside them."""
     launch_ts, ranges, device, steps = {}, [], [], []
     for ev in trace["traceEvents"]:
         cat, name = ev.get("cat"), ev.get("name", "")
         if cat in ("cuda_runtime", "cuda_driver"):
             launch_ts[ev.get("args", {}).get("correlation")] = ev["ts"]
-        elif cat == "user_annotation" and name in RANGES:
+        elif cat == "user_annotation" and name in names:
             ranges.append((ev["ts"], ev["ts"] + ev["dur"], name))
         elif cat == "user_annotation" and name.startswith("ProfilerStep"):
             steps.append((ev["ts"], ev["ts"] + ev["dur"]))
@@ -1602,9 +1617,11 @@ def latent_encoder_flops() -> dict:
 
 
 def phase_trace(card: str, tmp: str, ckpt: str, wall_ms_per_step: float,
-                path: str) -> dict:
-    """The path's eval again, with ``torch.profiler`` recording policy
-    steps TRACE_SKIP + 5 to TRACE_SKIP + 5 + TRACE_STEPS. Device time per
+                path: str, extra_opts=()) -> dict:
+    """The path's eval again (with ``extra_opts``: one tour per lane, which
+    holds enough policy steps for the window), with ``torch.profiler``
+    recording policy steps TRACE_SKIP + 5 to TRACE_SKIP + 5 +
+    TRACE_STEPS. Device time per
     ``record_function`` range of the trainer and policy, per policy step;
     the busy share sets device time per policy step against the untraced
     run's wall time per policy step (the profiler slows the host, not the
@@ -1632,8 +1649,10 @@ def phase_trace(card: str, tmp: str, ckpt: str, wall_ms_per_step: float,
     BaseVLNCETrainer._policy_step = stepped
     try:
         with prof:
-            run_exp(config, "eval", eval_opts(tmp, f"{path}_trace", ckpt,
-                                              extra), device="cuda")
+            run_exp(config, "eval",
+                    eval_opts(tmp, f"{path}_trace", ckpt,
+                              tuple(extra) + tuple(extra_opts)),
+                    device="cuda")
     finally:
         BaseVLNCETrainer._policy_step = policy_step
     t0 = time.perf_counter()
@@ -1869,6 +1888,423 @@ def phase_videos_and_trace(card: str, tmp: str, ckpt: str) -> dict:
     return summary
 
 
+# -- phase 14: training -------------------------------------------------------
+TRAIN_CONFIGS = {"train_map_cma": "configs/fake/map_cma_train_tf.yaml",
+                 "train_latent": "configs/fake/latent_cma_train.yaml"}
+TRAIN_RANGES = ("train_encode", "train_rnn", "train_loss", "backward",
+                "optimizer", "map_bn_stats")
+TRAIN_TRACE_WARMUP, TRAIN_TRACE_STEPS = 5, 20
+# loss terms, card against CPU (relative); gradients, of each tensor's
+# largest |value|; the map BatchNorm statistics (absolute and relative);
+# gradients that vanish in exact arithmetic, of the model's largest
+# gradient (rounding noise only: 9.0e-5 on an H100 at full width)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL, TRAIN_BN_TOL = 1e-5, 1e-4, 1e-5
+TRAIN_NOISE_TOL = 1e-3
+
+
+def train_opts(tmp: str, run: str) -> list:
+    """run_exp options of a training run: the config's 2 lanes, episodes
+    cut to 30 agent steps, batches of 5, at most 40 episodes (p = 1 stops
+    at the fake train split's distinct episodes), two epochs; outputs under
+    ``tmp/run``."""
+    out = os.path.join(tmp, run)
+    os.makedirs(out)
+    return [
+        "CHECKPOINT_FOLDER", os.path.join(out, "ckpts"),
+        "TENSORBOARD_DIR", os.path.join(out, "tb"),
+        "RESULTS_DIR", os.path.join(out, "results"),
+        "LOG_FILE", os.path.join(out, "train.log"),
+        "IL.batch_size", "5",
+        "IL.epochs", "2",
+        "IL.DAGGER.update_size", "40",
+        "IL.DAGGER.lmdb_features_dir", os.path.join(out, "traj.lmdb"),
+        "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", "30",
+    ]
+
+
+def phase_train(card: str, tmp: str, path: str) -> dict:
+    """Phase 14a / 14c: ``run_exp(config, "train")`` on the card, the
+    launch counters set to 0 just before and read just after: the
+    trajectory store, the checkpoints with the optimizer state, finite
+    losses, K1 and K2 once per collection step with a mapper and never
+    without; collection env steps/s, train steps/s and rows/s, the
+    host-phase split of the run and the peak device memory."""
+    from ivlnce_tpu_torch.ops import scatter as S
+    from ivlnce_tpu_torch.run import run_exp
+    from ivlnce_tpu_torch.trainers.base_trainer import load_checkpoint
+    from ivlnce_tpu_torch.trainers.trajectory_store import TrajectoryStore
+    from ivlnce_tpu_torch.utils import profiling
+
+    opts = train_opts(tmp, path)
+    torch.cuda.reset_peak_memory_stats()
+    S.launches.reset()
+    t0 = time.perf_counter()
+    trainer = run_exp(TRAIN_CONFIGS[path], "train", opts, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: getattr(S.launches, k) for k in KERNELS}
+    mapped = bool(trainer.obs_transforms)
+    steps = trainer.collection_steps
+    expected = {"accumulate": steps if mapped else 0,
+                "rasterize": steps if mapped else 0, "known_load": 0}
+    if launches != expected:
+        raise SystemExit(f"{path}: launches {launches} for {steps} "
+                         f"collection steps, expected {expected}")
+    losses = np.asarray(trainer.losses)
+    if not len(losses) or not np.isfinite(losses).all():
+        raise SystemExit(f"{path}: losses {trainer.losses}")
+    ckpt_dir = trainer.config.CHECKPOINT_FOLDER
+    ckpts = sorted(glob.glob(os.path.join(ckpt_dir, "ckpt.*.pth")))
+    last = load_checkpoint(ckpts[-1])
+    if (len(ckpts) != 2 or not last["optim_state"]["state"]
+            or (last["epoch"], last["step_id"]) != (
+                1, trainer.train_steps)):
+        raise SystemExit(f"{path}: checkpoints {ckpts}, epoch "
+                         f"{last.get('epoch')}, step {last.get('step_id')}")
+    if not glob.glob(os.path.join(trainer.config.TENSORBOARD_DIR,
+                                  "events.out.tfevents.*")):
+        raise SystemExit(f"{path}: no TensorBoard events")
+    store_dir = trainer.lmdb_features_dir
+    with TrajectoryStore(store_dir) as store:
+        records = store.count()
+        obs = store.get(0)[0]
+    want = {"depth_features"} | ({"occupancy_map", "semantic_map"}
+                                 if mapped else {"rgb_features"})
+    if not want <= set(obs) or {"depth", "rgb"} & set(obs):
+        raise SystemExit(f"{path}: a record holds {sorted(obs)}")
+    train_s = profiling._phase_times["train_step"]
+    summary = {
+        "card": card,
+        "path": path,
+        "policy": type(trainer.policy).__name__,
+        "lanes": trainer.config.NUM_ENVIRONMENTS,
+        "records": records,
+        "record_keys": sorted(obs),
+        "collection_steps": steps,
+        "collection_env_steps": trainer.collection_env_steps,
+        "collection_seconds": trainer.collection_seconds,
+        "collection_env_steps_per_s": (trainer.collection_env_steps
+                                       / trainer.collection_seconds),
+        "train_steps": trainer.train_steps,
+        "train_rows": trainer.train_rows,
+        "train_seconds": train_s,
+        "train_steps_per_s": trainer.train_steps / train_s,
+        "train_rows_per_s": trainer.train_rows / train_s,
+        "wall_ms_per_train_step": train_s * 1e3 / trainer.train_steps,
+        "run_seconds": trainer.run_seconds,
+        "run_exp_seconds": wall,
+        "losses": trainer.losses,
+        "checkpoint": ckpts[-1],
+        "store": store_dir,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches,
+        "host_phases": host_phases(trainer, trainer.run_seconds),
+    }
+    print(f"  [{card}] {path}: {records} episodes stored, "
+          f"{trainer.collection_env_steps} collection env steps in "
+          f"{trainer.collection_seconds:.2f} s: "
+          f"{summary['collection_env_steps_per_s']:.2f} env steps/s; "
+          f"{trainer.train_steps} train steps of {trainer.train_rows} rows "
+          f"in {train_s:.4f} s: {summary['train_steps_per_s']:.4f} train "
+          f"steps/s, {summary['train_rows_per_s']:.2f} rows/s; losses "
+          f"first {trainer.losses[0]}, last {trainer.losses[-1]}")
+    print(f"  launches: {launches} for {steps} collection steps; peak "
+          f"memory {summary['peak_memory_bytes']} bytes; records hold "
+          f"{summary['record_keys']}")
+    print(f"  host phases [{card}] {path}, of {trainer.run_seconds:.4f} s: "
+          + ", ".join(f"{k} {v['s']:.4f} s ({100 * v['share']:.2f}%, "
+                      f"{v['spans']} spans)"
+                      for k, v in summary["host_phases"].items()))
+    return summary, trainer
+
+
+def _training_policy(config, dtype, device):
+    """The MapCMA policy at the config's widths, weights from ``SEED``,
+    modules as the trainer sets them (recurrent ones in train mode)."""
+    from ivlnce_tpu_torch.models.policy import MapCMAPolicy
+
+    mapper = config.RL.POLICY.OBS_TRANSFORMS.EGOCENTRIC_MAPPER
+    info = {"depth_hw": config.TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.HEIGHT,
+            "map_hw": int(math.ceil(mapper.height_meters
+                                    / mapper.resolution_meters))}
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        policy = MapCMAPolicy.from_config(config, info)
+    policy = policy.to(device=device, dtype=dtype).eval()
+    for module in policy.modules():
+        if isinstance(module, torch.nn.RNNBase):
+            module.train()
+    return policy
+
+
+def _train_grads(policy, batch, dtype, device):
+    """The loss terms and every parameter's gradient (zeros where none)
+    of one training forward and backward of ``batch``."""
+    from ivlnce_tpu_torch.trainers.base_trainer import train_loss
+
+    obs, prev, masks, corrected, weights = batch
+    t, n = corrected.shape
+
+    def dev(a, dt=None):
+        x = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return x.to(dt) if dt is not None else x
+
+    tobs = {k: dev(v, dtype if v.dtype.kind == "f" else None)
+            for k, v in obs.items()}
+    m = dev(masks.reshape(t, n), dtype)
+    cfg = policy.model_config.PROGRESS_MONITOR
+    policy.zero_grad(set_to_none=True)
+    terms = train_loss(policy, tobs, dev(prev), m, m, dev(corrected),
+                       dev(weights, dtype),
+                       policy.initial_rnn_states(n, device).to(dtype),
+                       cfg.use, cfg.alpha)
+    terms[0].backward()
+    grads = {k: (torch.zeros_like(p) if p.grad is None else p.grad)
+             .detach().double().cpu()
+             for k, p in policy.named_parameters()}
+    return [float(x.detach()) for x in terms[:3]], grads
+
+
+def phase_train_reference(card: str, store_dir: str) -> dict:
+    """Phase 14b: one full-width MapCMA train step from phase 14a's store
+    (its first collated batch of 5) and the same initial weights, on the
+    card and on the CPU: the loss terms within TRAIN_LOSS_RTOL; every
+    gradient within TRAIN_GRAD_TOL of the CPU tensor's largest |value|.
+    Behind training-mode BatchNorm the map encoder's gradients are small
+    differences of large sums that float32 resolves only to about 1e-3 of
+    their largest |value|; a map-encoder tensor that misses the tolerance
+    passes when the card's float32 gradient is within TRAIN_GRAD_TOL of
+    the card's float64 one plus twice the CPU's float32 distance from it
+    (as close to the exact gradient as float32 allows). The conv biases
+    ahead of BatchNorm and the text keys' bias have no gradient in exact
+    arithmetic, only rounding noise: on each side they are held to
+    TRAIN_NOISE_TOL of the model's largest gradient. Then the map
+    BatchNorm statistics pass, on the same updated weights on both
+    sides, within TRAIN_BN_TOL."""
+    import random
+
+    from ivlnce_tpu_torch.config import get_config
+    from ivlnce_tpu_torch.trainers.base_trainer import make_optimizer
+    from ivlnce_tpu_torch.trainers.dagger_trainer import IWTrajectoryDataset
+
+    config = get_config(TRAIN_CONFIGS["train_map_cma"])
+    random.seed(SEED)
+    dataset = IWTrajectoryDataset(store_dir, config.IL.use_iw,
+                                  config.IL.inflection_weight_coef, 5)
+    batch = next(dataset.batches())
+    obs = {k: v.astype(np.float32) if v.dtype == np.float16 else v
+           for k, v in batch[0].items()}
+    batch = (obs,) + batch[1:]
+    t, n = batch[3].shape
+    sides = {}
+    for label, dtype, device in (("cpu", torch.float32, "cpu"),
+                                 ("card", torch.float32, "cuda"),
+                                 ("card64", torch.float64, "cuda")):
+        policy = _training_policy(config, dtype, device)
+        t0 = time.perf_counter()
+        sides[label] = _train_grads(policy, batch, dtype, device)
+        print(f"  {label}: forward and backward in "
+              f"{time.perf_counter() - t0:.2f} s")
+        if label == "cpu":
+            cpu_policy = policy
+    cpu_terms, cpu = sides["cpu"]
+    card_terms, on_card = sides["card"]
+    exact = sides["card64"][1]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_terms, cpu_terms)
+                   if b)
+    worst = {"direct": (0.0, None), "map_encoder_f64": (0.0, None),
+             "vanishing": (0.0, None)}
+    vanishing = ("net.text_k.bias",) + tuple(
+        f"net.map_encoder.cnn.{i}.conv.0.bias" for i in range(4))
+    failed = []
+    largest = max(float(g.abs().max()) for g in cpu.values())
+    for name, g in cpu.items():
+        diff = float((on_card[name] - g).abs().max())
+        if name in vanishing:
+            key = "vanishing"
+            ratio = max(float(on_card[name].abs().max()),
+                        float(g.abs().max())) / largest
+            ok = ratio <= TRAIN_NOISE_TOL
+        else:
+            scale = float(g.abs().max())
+            ratio = diff / scale if scale else (0.0 if diff == 0 else math.inf)
+            key, ok = "direct", ratio <= TRAIN_GRAD_TOL
+            if not ok and name.startswith("net.map_encoder."):
+                card_err = float((on_card[name] - exact[name]).abs().max())
+                cpu_err = float((g - exact[name]).abs().max())
+                bound = (TRAIN_GRAD_TOL * float(exact[name].abs().max())
+                         + 2 * cpu_err)
+                key, ratio, ok = "map_encoder_f64", card_err / bound, (
+                    card_err <= bound)
+        if ratio > worst[key][0]:
+            worst[key] = (ratio, name)
+        if not ok:
+            failed.append((name, ratio))
+
+    # the statistics pass on the same updated weights
+    optimizer = make_optimizer(cpu_policy, config)
+    optimizer.step()
+    card_policy = _training_policy(config, torch.float32, "cuda")
+    card_policy.load_state_dict(cpu_policy.state_dict())
+    stats = {}
+    for label, policy in (("cpu", cpu_policy), ("card", card_policy)):
+        device = next(policy.parameters()).device
+        policy.net.map_encoder.update_running_stats(
+            torch.from_numpy(obs["occupancy_map"]).to(device),
+            torch.from_numpy(obs["semantic_map"]).to(device))
+        stats[label] = {k: v.detach().double().cpu()
+                        for k, v in policy.state_dict().items()
+                        if k.startswith("net.map_encoder.")
+                        and k.endswith(("running_mean", "running_var"))}
+    bn_err = max(float(((stats["card"][k] - v).abs()
+                        / (1 + v.abs())).max())
+                 for k, v in stats["cpu"].items())
+    summary = {"card": card, "rows": t * n, "T": t, "N": n,
+               "largest_gradient": largest,
+               "loss_terms_cpu": cpu_terms, "loss_terms_card": card_terms,
+               "loss_rel_err": loss_err,
+               "grad_worst": {k: {"ratio": r, "tensor": nm}
+                              for k, (r, nm) in worst.items()},
+               "map_bn_err": bn_err}
+    print(f"  train step card vs CPU [{card}], T={t} N={n}: loss terms "
+          f"{card_terms} vs {cpu_terms} (worst relative {loss_err:.3e}); "
+          f"worst gradient ratios {summary['grad_worst']} (the vanishing "
+          f"ones of the largest gradient, {largest:.4e}); map BatchNorm "
+          f"statistics worst {bn_err:.3e}")
+    if loss_err > TRAIN_LOSS_RTOL or failed or bn_err > TRAIN_BN_TOL:
+        raise SystemExit(f"the card's train step disagrees with the CPU's: "
+                         f"loss {loss_err:.3e}, tensors {failed[:8]}, "
+                         f"map BatchNorm {bn_err:.3e}")
+    return summary
+
+
+def gru_step_flops(policy) -> int:
+    """Float32 operations of the two GRU cells for one row (two per
+    multiply-add): 3 gates over input and hidden."""
+    total = 0
+    for enc in (policy.net.state_encoder, policy.net.second_state_encoder):
+        rnn = enc.rnn
+        total += 2 * 3 * rnn.hidden_size * (rnn.input_size + rnn.hidden_size)
+    return total
+
+
+def phase_train_trace(card: str, trainer_summary: dict, trainer) -> dict:
+    """Phase 14d: TRAIN_TRACE_STEPS MapCMA train steps (after
+    TRAIN_TRACE_WARMUP) of phase 14a's trainer over its store's batches,
+    traced by ``torch.profiler``: device ms per train step by range, the
+    busy share against 14a's untraced wall ms per train step, and the GRU
+    cells' float32 bound at the batches' T*N against the ``train_rnn``
+    range."""
+    import random
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from ivlnce_tpu_torch.trainers.dagger_trainer import IWTrajectoryDataset
+
+    config = trainer.config
+    random.seed(SEED)
+    dataset = IWTrajectoryDataset(trainer.lmdb_features_dir,
+                                  config.IL.use_iw,
+                                  config.IL.inflection_weight_coef,
+                                  config.IL.batch_size)
+    batches = []
+    while len(batches) < TRAIN_TRACE_WARMUP + TRAIN_TRACE_STEPS:
+        batches += list(dataset.batches())
+    batches = batches[:TRAIN_TRACE_WARMUP + TRAIN_TRACE_STEPS]
+    trace_path = os.path.join(os.path.dirname(trainer.lmdb_features_dir),
+                              "train_trace.json")
+
+    def traced() -> dict:
+        prof = profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            schedule=schedule(wait=0, warmup=TRAIN_TRACE_WARMUP,
+                              active=TRAIN_TRACE_STEPS, repeat=1),
+            on_trace_ready=lambda p: p.export_chrome_trace(trace_path),
+        )
+        with prof:
+            for obs, prev, masks, corrected, weights in batches:
+                obs = {k: v.astype(np.float32) if v.dtype == np.float16
+                       else v for k, v in obs.items()}
+                trainer._update_agent(obs, prev, masks, corrected, weights)
+                prof.step()
+        with open(trace_path) as f:
+            return attribute_device_time(json.load(f), TRAIN_RANGES)
+
+    # a trace whose device events lack their launch records (the profiler
+    # loses a few now and then) is taken again, as phase 7's are
+    for attempt in range(1, 4):
+        got = traced()
+        if got["device_us"] and not got["unmatched"]:
+            break
+        print(f"  train trace {attempt}: {got['device_us']} device us, "
+              f"{got['unmatched']} device events without a launch record")
+    else:
+        raise SystemExit("no complete train trace in 3 attempts")
+    rows = [b[3].size for b in batches]
+    per_step = {k: us / 1e3 / TRAIN_TRACE_STEPS
+                for k, us in got["by_range_us"].items()}
+    missing = [r for r in TRAIN_RANGES if not per_step.get(r)]
+    if missing:
+        raise SystemExit(f"no device time in the ranges {missing}")
+    device_ms = got["device_us"] / 1e3 / TRAIN_TRACE_STEPS
+    traced_rows = rows[TRAIN_TRACE_WARMUP:]
+    mean_rows = sum(traced_rows) / len(traced_rows)
+    flops = gru_step_flops(trainer.policy)
+    rnn_bound_ms = mean_rows * flops / FP32_FLOPS * 1e3
+    top = defaultdict(float)
+    for k, v in got["by_kernel_us"].items():
+        top[k[:60]] += sum(v.values()) / 1e3 / TRAIN_TRACE_STEPS
+    summary = {
+        "card": card,
+        "train_steps": TRAIN_TRACE_STEPS,
+        "trace_attempts": attempt,
+        "mean_rows": mean_rows,
+        "device_ms_per_train_step": device_ms,
+        "range_device_ms_per_train_step": per_step,
+        "busy_share": device_ms / trainer_summary["wall_ms_per_train_step"],
+        "traced_busy_share": got["device_us"] / got["window_us"],
+        "gru_flops_per_row": flops,
+        "gru_bound_ms": rnn_bound_ms,
+        "top_device_ms_per_train_step": dict(
+            sorted(top.items(), key=lambda kv: -kv[1])[:10]),
+    }
+    print(f"  [{card}] {TRAIN_TRACE_STEPS} train steps traced (mean T*N "
+          f"{mean_rows:.1f}); device ms per train step {device_ms:.4f}, by "
+          f"range {per_step}")
+    print(f"  [{card}] busy share {summary['busy_share']:.4f} of 14a's "
+          f"untraced train step ({summary['traced_busy_share']:.4f} of the "
+          f"traced window's); GRU cells {flops} float32 operations per row: "
+          f"bound {rnn_bound_ms:.4f} ms at 67 TFLOP/s against "
+          f"{per_step['train_rnn']:.4f} ms in train_rnn (forward, with the "
+          f"attention)")
+    return summary
+
+
+def phase_training(card: str, tmp: str, one_tour) -> dict:
+    """Phase 14: MapCMA teacher forcing (14a) and its trained checkpoint
+    evaluated on the card, one full-width train step card vs CPU (14b),
+    LatentCMA (14c) and the trace (14d)."""
+    import shutil
+
+    out = {}
+    print("  14a: MapCMA teacher forcing through run_exp")
+    t0 = time.perf_counter()
+    train, trainer = phase_train(card, tmp, "train_map_cma")
+    out["train_map_cma"] = train
+    trained = os.path.join(tmp, "trained_map_cma.0.pth")
+    shutil.copy(train["checkpoint"], trained)
+    out["train_map_cma_eval"] = phase_end_to_end(
+        card, tmp, trained, "iterative", one_tour, run="train_map_cma_eval")
+    print("  14b: one full-width train step, card vs CPU")
+    out["train_reference"] = phase_train_reference(card, train["store"])
+    print("  14c: LatentCMA through run_exp")
+    out["train_latent"] = phase_train(card, tmp, "train_latent")[0]
+    print("  14d: traced train steps")
+    out["train_trace"] = phase_train_trace(card, train, trainer)
+    print(f"  phase 14 took {time.perf_counter() - t0:.2f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1927,12 +2363,13 @@ def main() -> int:
         ckpt = os.path.join(tmp, "ckpt.0.pth")
         save_checkpoint(seeded_policy(get_config(CONFIG)),
                         get_config(CONFIG), ckpt)
+        one_tour = one_tour_per_lane(tmp)
         print("phase 6: end-to-end iterative eval through run_exp")
         e2e["iterative"] = phase_end_to_end(card, tmp, ckpt, "iterative")
         print("phase 7: traced eval, device time by range")
         traces["iterative"] = phase_trace(
             card, tmp, ckpt, e2e["iterative"]["wall_ms_per_step"],
-            "iterative")
+            "iterative", one_tour)
         print("phase 8: known-map eval through run_exp")
         e2e["known"] = phase_end_to_end(card, tmp, ckpt, "known")
         print("phase 9: predicted-semantics eval through run_exp, then "
@@ -1940,7 +2377,7 @@ def main() -> int:
         e2e["predicted"] = phase_end_to_end(card, tmp, ckpt, "predicted")
         traces["predicted"] = phase_trace(
             card, tmp, ckpt, e2e["predicted"]["wall_ms_per_step"],
-            "predicted")
+            "predicted", one_tour)
         semantics_ms = traces["predicted"]["range_device_ms_per_step"].get(
             "semantics")
         if not semantics_ms:
@@ -1957,7 +2394,6 @@ def main() -> int:
         print("phase 10: the latent baselines' tour evals through run_exp "
               "(one tour per lane but for 4_pool_end_cma, which phase 11 "
               "traces)")
-        one_tour = one_tour_per_lane(tmp)
         for variant, (flags, layers) in LATENT_VARIANTS.items():
             path = f"latent_{variant}"
             config = latent_config(flags)
@@ -1974,7 +2410,8 @@ def main() -> int:
         print("phase 11: the memory_at_end baseline traced")
         path = "latent_4_pool_end_cma"
         traces["latent"] = trace = phase_trace(
-            card, tmp, latent_ckpt, e2e[path]["wall_ms_per_step"], path)
+            card, tmp, latent_ckpt, e2e[path]["wall_ms_per_step"], path,
+            one_tour)
         ranges = trace["range_device_ms_per_step"]
         if not ranges.get("rgb_encoder") or not ranges.get("encoders"):
             raise SystemExit("no device time in the encoder ranges")
@@ -2008,6 +2445,11 @@ def main() -> int:
             e2e[f"ckpt_{kind}"] = run
         e2e["map_episodic_videos"] = phase_videos_and_trace(card, tmp, ckpt)
 
+        print("phase 14: training: MapCMA teacher forcing and LatentCMA "
+              "through run_exp, a train step card vs CPU, the trace")
+        training = phase_training(card, tmp, one_tour)
+        e2e["train_map_cma_eval"] = training.pop("train_map_cma_eval")
+
     # each kernel's launches come from the path that runs it
     kernel_path = {"accumulate": "iterative", "rasterize": "iterative",
                    "known_load": "known"}
@@ -2032,7 +2474,10 @@ def main() -> int:
             "library_ms": None,
             "yardstick_ms": timing[k]["yardstick_ms"],
             "cuda_kernels": KERNEL_NAMES[k],
-            "launches_by_path": {p: v["launches"][k] for p, v in e2e.items()},
+            "launches_by_path": {
+                **{p: v["launches"][k] for p, v in e2e.items()},
+                **{p: training[p]["launches"][k]
+                   for p in ("train_map_cma", "train_latent")}},
             "pass_ms": timing[k]["pass_ms"],
         }
         for k in ("accumulate", "rasterize", "known_load")
@@ -2053,6 +2498,7 @@ def main() -> int:
                                  "pass_ms", "old_pass_ms", "peak_bytes")}
         for size, v in known_timed.items()}
     print(json.dumps({"end_to_end": e2e, "trace": traces,
+                      "training": training,
                       "reference": reference,
                       "kernel_walks": walks_timed,
                       "known_load_timing": known_timed,

@@ -85,6 +85,12 @@ class Mapper:
         self.known_map_loads = 0  # lanes loaded with a scene's cloud
 
     # -- lane management -----------------------------------------------------
+    def reset(self) -> None:
+        """Drop the lane state: a new set of envs (a DAgger collection)
+        starts from empty grids."""
+        self.state = None
+        self._loaded_env_names = []
+
     def _ensure_state(self, batch_size: int):
         if self.state is None or self.state.batch_size != batch_size:
             self.state = init_state(

@@ -92,13 +92,22 @@ class MapCMANet(nn.Module):
         observations: Dict[str, torch.Tensor],
         prev_actions: torch.Tensor,
         action_masks: torch.Tensor,
+        training: bool = False,
     ) -> CMAFeatures:
+        """``training`` runs a trainable map encoder's BatchNorm on batch
+        statistics (JAX cma.py:173-181); ``depth_features`` (a trajectory
+        store's frozen-encoder features) stand in for the depth encoder."""
         cfg = self.cfg
         half = self.half
         txt = self.instruction_encoder(observations)
-        dep = self.depth_encoder(observations["depth"]).flatten(2)
+        if "depth_features" in observations:
+            dep = observations["depth_features"]
+        else:
+            dep = self.depth_encoder(observations["depth"])
+        dep = dep.flatten(2)
         map_feat = self.map_encoder(
-            observations["occupancy_map"], observations["semantic_map"]
+            observations["occupancy_map"], observations["semantic_map"],
+            training=training and cfg.SEMANTIC_MAP_ENCODER.trainable,
         ).flatten(2)
         idx = ((prev_actions.reshape(-1).float() + 1)
                * action_masks.reshape(-1).float()).long()
@@ -205,7 +214,10 @@ class LatentCMANet(nn.Module):
         observations: Dict[str, torch.Tensor],
         prev_actions: torch.Tensor,
         action_masks: torch.Tensor,
+        training: bool = False,
     ) -> CMAFeatures:
+        """``training`` changes nothing here: LatentCMA has no trainable
+        BatchNorm (its RGB trunk's statistics are frozen)."""
         cfg = self.cfg
         half = self.half
         txt = self.instruction_encoder(observations)
@@ -282,3 +294,12 @@ class LatentCMANet(nn.Module):
         if cfg.memory_at_end:
             x = self.out_layer(torch.cat([x, memory], 1))
         return x, torch.stack(slots, dim=1)
+
+
+def progress_monitor_loss(net: nn.Module, features: torch.Tensor,
+                          progress: torch.Tensor) -> torch.Tensor:
+    """Per-row squared error of tanh(progress head) against the progress
+    sensor (map_cma_policy.py:355-366, JAX cma.py:523-530); the trainer
+    reduces it over the rows with a positive inflection weight."""
+    progress_hat = torch.tanh(net.progress_monitor(features))
+    return (progress_hat[:, 0] - progress.reshape(-1).float()) ** 2

@@ -1,28 +1,48 @@
-"""Semantic map encoder (eval mode): the PyTorch counterpart of
+"""Semantic map encoder: the PyTorch counterpart of
 ``ivlnce_tpu/models/map_encoder.py`` (reference map_encoder.py). Four
 CBRA blocks (7x7 same conv -> BatchNorm -> ReLU -> 2x2 avg pool) over 1
-occupancy + 13 one-hot semantic channels."""
+occupancy + 13 one-hot semantic channels.
+
+BatchNorm follows the JAX package, not ``nn.BatchNorm2d``'s train mode:
+the training forward (``training=True``) normalises with the batch's
+statistics (biased variance) and leaves the running statistics alone;
+after the optimizer step the trainer calls ``update_running_stats``, which
+recomputes them layer by layer with the updated weights (momentum 0.1,
+unbiased variance; JAX map_encoder.py:75-94, nn.py:220-233)."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ivlnce_tpu_torch.models.nn import one_hot
+
+BN_MOMENTUM = 0.1
 
 
 class CBRA(nn.Module):
     def __init__(self, cin: int, cout: int):
         super().__init__()
+        # conv.0 / conv.1: the reference checkpoints' names
         self.conv = nn.Sequential(
             nn.Conv2d(cin, cout, 7, padding=3),
             nn.BatchNorm2d(cout),
-            nn.ReLU(True),
-            nn.AvgPool2d(2),
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x)
+    def normalize(self, pre: torch.Tensor, training: bool) -> torch.Tensor:
+        """BatchNorm of the conv output: batch statistics when
+        ``training``, else the running ones; never updates them."""
+        bn = self.conv[1]
+        if training:
+            return F.batch_norm(pre, None, None, bn.weight, bn.bias, True,
+                                0.0, bn.eps)
+        return F.batch_norm(pre, bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, False, 0.0, bn.eps)
+
+    def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
+        x = self.normalize(self.conv[0](x), training)
+        return F.avg_pool2d(F.relu(x), 2)
 
 
 class SemanticMapEncoder(nn.Module):
@@ -38,9 +58,35 @@ class SemanticMapEncoder(nn.Module):
         self.cnn = nn.Sequential(*blocks)
         self.output_shape = (widths[-1], map_hw // 16, map_hw // 16)
 
-    def forward(self, occupancy: torch.Tensor,
+    def _inputs(self, occupancy: torch.Tensor,
                 semantic: torch.Tensor) -> torch.Tensor:
-        """(B, R, C) uint8 maps -> (B, C_out, R/16, C/16)."""
-        occ = occupancy.float()[:, None]
-        sem = one_hot(semantic, self.num_semantic_classes).permute(0, 3, 1, 2)
-        return self.cnn(torch.cat([occ, sem], dim=1))
+        """The 14 input channels, in the encoder's dtype."""
+        dtype = self.cnn[0].conv[0].weight.dtype
+        occ = occupancy.to(dtype)[:, None]
+        sem = one_hot(semantic, self.num_semantic_classes).to(dtype)
+        return torch.cat([occ, sem.permute(0, 3, 1, 2)], dim=1)
+
+    def forward(self, occupancy: torch.Tensor, semantic: torch.Tensor,
+                training: bool = False) -> torch.Tensor:
+        """(B, R, C) uint8 maps -> (B, C_out, R/16, C/16); ``training``
+        normalises with batch statistics."""
+        x = self._inputs(occupancy, semantic)
+        for block in self.cnn:
+            x = block(x, training)
+        return x
+
+    @torch.no_grad()
+    def update_running_stats(self, occupancy: torch.Tensor,
+                             semantic: torch.Tensor) -> None:
+        """Move each BatchNorm's running statistics toward the batch's, in
+        one pass with the current weights: block i's batch statistics
+        normalise its output, which feeds block i + 1 (JAX
+        ``map_encoder_new_stats``)."""
+        x = self._inputs(occupancy, semantic)
+        for block in self.cnn:
+            bn = block.conv[1]
+            pre = block.conv[0](x)
+            var, mean = torch.var_mean(pre, dim=(0, 2, 3), unbiased=True)
+            bn.running_mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mean)
+            bn.running_var.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * var)
+            x = F.avg_pool2d(F.relu(block.normalize(pre, True)), 2)

@@ -2,9 +2,10 @@
 ``ivlnce_tpu/models/policy.py`` (reference policy.py:12-83,
 map_cma_policy.py:28-100, latent_cma_policy.py:28-193).
 
-``CMAPolicy`` holds the act plumbing both nets share; the subclasses name
-their net, the sensors its step reads and, for LatentCMA, which masks
-restart the GRUs in a tour."""
+``CMAPolicy`` holds the act plumbing both nets share and the training
+forward (``build_distribution``); the subclasses name their net, the
+sensors its step reads and, for LatentCMA, which masks restart the GRUs
+in a tour."""
 
 from __future__ import annotations
 
@@ -14,8 +15,14 @@ import torch
 from torch import nn
 from torch.distributions import Categorical
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
-from ivlnce_tpu_torch.models.cma import NUM_ACTIONS, LatentCMANet, MapCMANet
+from ivlnce_tpu_torch.models.cma import (
+    NUM_ACTIONS,
+    CMAFeatures,
+    LatentCMANet,
+    MapCMANet,
+)
 from ivlnce_tpu_torch.utils.registry import registry
 
 
@@ -51,6 +58,9 @@ class CMAPolicy(nn.Module):
         # (map_cma_policy.py:116-118, latent_cma_policy.py:209-211)
         model_config.INSTRUCTION_ENCODER.final_state_only = False
         self.model_config = model_config.freeze()
+        # rows per recomputed encoder chunk of the training forward
+        # (TPU.train_encode_chunk; 0 = one pass over all T*N rows)
+        self.encode_chunk = int(config.TPU.train_encode_chunk)
         self.net = net_fn(self.model_config)
         self.action_distribution = CategoricalNet(
             self.net.hidden_size, NUM_ACTIONS
@@ -105,6 +115,80 @@ class CMAPolicy(nn.Module):
         else:
             actions = sample_actions(logits, generator)
         return PolicyOutput(actions, rnn_out, logits)
+
+    def _training_masks(self, agent_masks, tour_masks):
+        """(episode, tour) masks of the training forward, (T, N) each;
+        MapCMA restarts its GRUs at agent-episode boundaries."""
+        return agent_masks, tour_masks
+
+    def build_distribution(
+        self,
+        observations: Dict[str, torch.Tensor],
+        rnn_states: torch.Tensor,  # (N, L, H)
+        prev_actions: torch.Tensor,  # (T*N, 1)
+        agent_episode_not_done_masks: torch.Tensor,  # (T*N, 1) or (T, N)
+        tour_not_done_masks: Optional[torch.Tensor] = None,
+        training: bool = True,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The sequence forward over T-major T*N rows (the trainers' BPTT
+        path, JAX policy.py:177-229): the encoders run over all rows at
+        once, the recurrent step loops over T. Returns (logits (T*N, A),
+        features (T*N, H), final rnn_states)."""
+        n = rnn_states.shape[0]
+        agent = agent_episode_not_done_masks.reshape(-1, n)
+        t = agent.shape[0]
+        tour = agent if tour_not_done_masks is None else (
+            tour_not_done_masks.reshape(t, n))
+        episode_t, tour_t = self._training_masks(agent, tour)
+        with record_function("train_encode"):
+            feats = self._encode_seq(observations, prev_actions,
+                                     agent.reshape(-1), training)
+        with record_function("train_rnn"):
+            feats_t = [x.reshape((t, n) + x.shape[1:]) for x in feats]
+            features, h = [], rnn_states
+            for i in range(t):
+                out, h = self.net.step(CMAFeatures(*(x[i] for x in feats_t)),
+                                       h, episode_t[i], tour_t[i])
+                features.append(out)
+            features = torch.cat(features, 0)
+            logits = self.action_distribution.linear(features)
+        return logits, features, h
+
+    def _encode_seq(self, observations, prev_actions, masks, training):
+        """``net.encode`` over the T*N rows; while training with
+        ``encode_chunk`` > 0 and smaller than T*N, in chunks of that many
+        rows, each recomputed in the backward pass
+        (``torch.utils.checkpoint``), so only the chunks' outputs are kept.
+        The rows are zero-padded up to a whole number of chunks and the
+        padding is cut from the outputs; each chunk's map BatchNorm sees
+        that chunk's rows, padding included, as the JAX scan's does."""
+        chunk = self.encode_chunk
+        tn = masks.shape[0]
+        if not training or chunk <= 0 or tn <= chunk:
+            return self.net.encode(observations, prev_actions, masks,
+                                   training)
+        k = -(-tn // chunk)
+        pad = k * chunk - tn
+
+        def chunked(a):
+            if pad:
+                a = torch.cat([a, a.new_zeros((pad,) + a.shape[1:])], 0)
+            return a.split(chunk)
+
+        keys = [k_ for k_, v in observations.items()
+                if isinstance(v, torch.Tensor)]
+        obs_c = [dict(zip(keys, parts)) for parts in
+                 zip(*(chunked(observations[k_]) for k_ in keys))]
+        pa_c = chunked(prev_actions.reshape(-1, 1))
+        m_c = chunked(masks)
+
+        def encode_chunk(o, pa, m):
+            return tuple(self.net.encode(o, pa, m, training))
+
+        outs = [checkpoint(encode_chunk, o, pa, m, use_reentrant=False)
+                for o, pa, m in zip(obs_c, pa_c, m_c)]
+        return CMAFeatures(*(torch.cat(parts, 0)[:tn]
+                             for parts in zip(*outs)))
 
     def act(self, observations, rnn_states, prev_actions, masks,
             generator: Optional[torch.Generator] = None) -> PolicyOutput:
@@ -166,3 +250,11 @@ class LatentCMAPolicy(CMAPolicy):
         if cfg.tour_memory:
             return tour_masks, None
         return None, None
+
+    def _training_masks(self, agent_masks, tour_masks):
+        """JAX policy.py:360-367: ``tour_memory`` restarts the GRUs at
+        tour boundaries only."""
+        cfg = self.model_config
+        if cfg.tour_memory and not cfg.tour_memory_variant:
+            return tour_masks, tour_masks
+        return agent_masks, tour_masks

@@ -28,6 +28,19 @@ class RNNStateEncoder(nn.Module):
         out, _ = self.rnn(x[None], h)
         return out[0]
 
+    def sequence(
+        self, xs: torch.Tensor, h: torch.Tensor, masks: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The masked recurrence over (T, B, I) inputs and (T, B)
+        not-done masks, h <- GRU(x_t, h * m_t) one step at a time
+        (``gru_sequence``, ivlnce_tpu/models/rnn.py:97). Returns
+        (outputs (T, B, H), h_T)."""
+        outs = []
+        for x, m in zip(xs, masks):
+            h = self(x, h, m)
+            outs.append(h)
+        return torch.stack(outs), h
+
 
 def bi_lstm_padded(
     lstm: nn.LSTM, xs: torch.Tensor, lengths: torch.Tensor

@@ -1,11 +1,13 @@
 """Entry point of the PyTorch port (mirrors the repository's run.py):
 
-    python -m ivlnce_tpu_torch.run --run-type eval --exp-config <yaml> \
-        [--device cuda|cpu] [opt.key value ...]
+    python -m ivlnce_tpu_torch.run --run-type {train,eval} \
+        --exp-config <yaml> [--device cuda|cpu] [opt.key value ...]
 
 Runs on the CUDA card unless ``--device cpu`` is given; without a card
-and without ``--device cpu`` it raises. Only ``eval`` (episodic and
-iterative evaluation, MapCMA and LatentCMA) is ported so far."""
+and without ``--device cpu`` it raises. ``train`` runs DAgger collection
+and training (the ``dagger`` and ``iterative_collection_dagger``
+trainers), ``eval`` the episodic and iterative evaluations; ``inference``
+is not ported yet."""
 
 from __future__ import annotations
 
@@ -37,18 +39,21 @@ def run_exp(exp_config: str, run_type: str, opts=None, device=None):
     logging_util.add_filehandler(config.LOG_FILE)
     random.seed(config.TASK_CONFIG.SEED)
     np.random.seed(config.TASK_CONFIG.SEED)
-    if run_type != "eval":
+    if run_type not in ("train", "eval"):
         raise NotImplementedError(
             f"--run-type {run_type} waits for a later slice of the port"
         )
     trainer = registry.get_trainer(config.TRAINER_NAME)(config, device)
-    trainer.eval()
+    if run_type == "train":
+        trainer.train()
+    else:
+        trainer.eval()
     return trainer
 
 
 def main() -> None:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--run-type", choices=["eval"],
+    parser.add_argument("--run-type", choices=["train", "eval"],
                         required=True)
     parser.add_argument("--exp-config", type=str, required=True)
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda")

@@ -1,14 +1,19 @@
-"""VLN-CE evaluation trainer: the PyTorch counterpart of the eval half of
+"""VLN-CE trainer base: the PyTorch counterpart of
 ``ivlnce_tpu/trainers/base_trainer.py`` (reference
-ivlnce_baselines/common/base_il_trainer.py:313-928).
+ivlnce_baselines/common/base_il_trainer.py).
 
-Episodic and iterative (tour) evaluation: each env step runs the mapper
-obs transform, when one is enabled, and the policy on the device
-(``_policy_step``) and brings back the actions; lanes keep a fixed row
-count while envs pause. Stats JSONs and tour-nDTW are written as the JAX
-package writes them. The registered trainers (``dagger_trainer.py`` and
-its two iterative subclasses) are this class under the reference's
-names; training waits for a later slice of the port."""
+Evaluation (base_il_trainer.py:313-928), episodic and iterative (tour):
+each env step runs the mapper obs transform, when one is enabled, and the
+policy on the device (``_policy_step``) and brings back the actions;
+lanes keep a fixed row count while envs pause. Stats JSONs and tour-nDTW
+are written as the JAX package writes them.
+
+Training (base_il_trainer.py:173-219): ``train_step`` is the BPTT update
+over a (T, N) batch (inflection-weighted cross-entropy plus the progress
+monitor, backward, Adam, then the map encoder's BatchNorm statistics);
+``_update_agent`` feeds it a collated batch. The registered trainers
+(``dagger_trainer.py`` and its two iterative subclasses) collect the
+trajectories and run the loops."""
 
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from torch.profiler import record_function
 from ivlnce_tpu_torch.envs.vector_env import construct_envs_auto_reset_false
 from ivlnce_tpu_torch.mapping.obs_transforms import get_active_obs_transforms
 from ivlnce_tpu_torch.models import checkpoint_io as cio
+from ivlnce_tpu_torch.models.cma import progress_monitor_loss
 from ivlnce_tpu_torch.models.convert import params_from_jax
 from ivlnce_tpu_torch.tasks.tour_ndtw import compute_tour_ndtw
 from ivlnce_tpu_torch.utils import batching, logging_util, profiling, viz
@@ -79,6 +85,79 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     return {**ckpt, "state_dict": params_from_jax(ckpt["params"])}
 
 
+# -- the training step --------------------------------------------------------
+def make_optimizer(policy, config) -> torch.optim.Adam:
+    """Adam at ``IL.lr`` (optax's defaults: betas 0.9 / 0.999, eps 1e-8);
+    with ``SEMANTIC_MAP_ENCODER.custom_lr`` the map encoder's parameters
+    form a second group at ``SEMANTIC_MAP_ENCODER.lr`` (JAX
+    base_trainer.py:193-211)."""
+    params = list(policy.parameters())
+    map_encoder = getattr(policy.net, "map_encoder", None)
+    if not config.MODEL.SEMANTIC_MAP_ENCODER.custom_lr or map_encoder is None:
+        return torch.optim.Adam(params, lr=config.IL.lr)
+    in_map = {id(p) for p in map_encoder.parameters()}
+    return torch.optim.Adam([
+        {"params": [p for p in params if id(p) not in in_map],
+         "lr": config.IL.lr},
+        {"params": list(map_encoder.parameters()),
+         "lr": config.MODEL.SEMANTIC_MAP_ENCODER.lr},
+    ])
+
+
+def train_loss(policy, observations, prev_actions, episode_masks,
+               tour_masks, corrected, weights, rnn_states,
+               use_progress: bool, alpha: float):
+    """The training forward and its loss (JAX base_trainer.py:69-93):
+    ``mean_n(sum_t w * CE / sum_t w)`` over the (T, N) ``corrected``
+    actions and inflection ``weights``, plus ``alpha`` times the progress
+    monitor's squared error over the rows with w > 0. Returns (loss,
+    action loss, aux loss, final rnn_states)."""
+    t, n = corrected.shape
+    logits, features, rnn_out = policy.build_distribution(
+        observations, rnn_states, prev_actions, episode_masks, tour_masks,
+        training=True,
+    )
+    with record_function("train_loss"):
+        logp = torch.log_softmax(logits.reshape(t, n, -1), dim=-1)
+        action_loss = -logp.gather(-1, corrected[..., None])[..., 0]
+        action_loss = ((weights * action_loss).sum(0)
+                       / weights.sum(0)).mean()
+        aux_loss = torch.zeros((), device=logits.device)
+        if use_progress:
+            p_loss = progress_monitor_loss(policy.net, features,
+                                           observations["progress"])
+            aux_mask = (weights > 0).reshape(-1).float()
+            aux_loss = alpha * (p_loss * aux_mask).sum() / aux_mask.sum()
+    return action_loss + aux_loss, action_loss, aux_loss, rnn_out
+
+
+def train_step(policy, optimizer, observations, prev_actions, episode_masks,
+               tour_masks, corrected, weights, rnn_states,
+               use_progress: bool, alpha: float, update_map_bn: bool):
+    """One BPTT update (JAX ``make_train_step``): the loss, its gradients,
+    an optimizer step, then, with ``update_map_bn`` (MapCMA with a
+    trainable map encoder), the map encoder's running BatchNorm statistics
+    recomputed over the batch's maps with the UPDATED weights, as the JAX
+    package does after its optimizer update. Returns the loss terms and
+    the final rnn_states, detached."""
+    loss, action_loss, aux_loss, rnn_out = train_loss(
+        policy, observations, prev_actions, episode_masks, tour_masks,
+        corrected, weights, rnn_states, use_progress, alpha,
+    )
+    with record_function("backward"):
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+    with record_function("optimizer"):
+        optimizer.step()
+    if update_map_bn:
+        with record_function("map_bn_stats"):
+            policy.net.map_encoder.update_running_stats(
+                observations["occupancy_map"], observations["semantic_map"]
+            )
+    return (loss.detach(), action_loss.detach(), aux_loss.detach(),
+            rnn_out.detach())
+
+
 class BaseVLNCETrainer:
     """Evaluation of a MapCMA or LatentCMA checkpoint on the device given
     by ``device`` ("cuda" unless the caller asks for "cpu")."""
@@ -98,11 +177,15 @@ class BaseVLNCETrainer:
         # change, not per step) over the trainer's evals
         self.policy_steps = 0
         self.instruction_encodes = 0
+        # training: the optimizer, and the train steps and their T*N rows
+        self.optimizer = None
+        self.train_steps = 0
+        self.train_rows = 0
         os.makedirs(config.CHECKPOINT_FOLDER, exist_ok=True)
         if config.EVAL.SAVE_RESULTS:
             os.makedirs(config.RESULTS_DIR, exist_ok=True)
 
-    # -- policy ----------------------------------------------------------------
+    # -- policy ---------------------------------------------------------------
     def _observation_info(self, config) -> Dict:
         """Sensor sizes the nets are built for; LatentCMA ignores map_hw."""
         mapper = config.RL.POLICY.OBS_TRANSFORMS.EGOCENTRIC_MAPPER
@@ -113,7 +196,10 @@ class BaseVLNCETrainer:
             ),
         }
 
-    def _initialize_policy(self, config, checkpoint_path: str) -> None:
+    def _build_policy(self, config, checkpoint_path: Optional[str]):
+        """The configured policy on the device: seeded weights, the
+        external encoders, then the checkpoint's weights when a path is
+        given. Returns (policy, the checkpoint dict or None)."""
         policy_cls = registry.get_policy(config.MODEL.policy_name)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(config.TASK_CONFIG.SEED)
@@ -121,14 +207,18 @@ class BaseVLNCETrainer:
                 config, self._observation_info(config)
             )
         state = self._load_external_encoders(config, policy.state_dict())
-        state = cio.merge_params(
-            state, load_checkpoint(checkpoint_path)["state_dict"]
-        )
+        ckpt = None
+        if checkpoint_path is not None:
+            ckpt = load_checkpoint(checkpoint_path)
+            state = cio.merge_params(state, ckpt["state_dict"])
+            logger.info(f"Loaded weights from checkpoint: {checkpoint_path}")
         policy.load_state_dict(state)
-        self.policy = policy.to(self.device).eval()
         n_params = sum(p.numel() for p in policy.parameters())
-        logger.info(f"Loaded weights from checkpoint: {checkpoint_path}")
         logger.info(f"Agent parameters: {n_params}.")
+        return policy.to(self.device), ckpt
+
+    def _initialize_policy(self, config, checkpoint_path: str) -> None:
+        self.policy = self._build_policy(config, checkpoint_path)[0].eval()
         self._lane_rows = None
         self._txt_cache_tokens = None
         # EVAL.SAMPLE: actions drawn with a generator on the policy's
@@ -137,6 +227,123 @@ class BaseVLNCETrainer:
         if config.EVAL.SAMPLE:
             self._generator = torch.Generator(device=self.device)
             self._generator.manual_seed(config.TASK_CONFIG.SEED)
+
+    # -- training -------------------------------------------------------------
+    def _check_training_options(self, config) -> None:
+        """Refuse what the port's training cannot do, before any
+        collection: Orbax checkpoints and more than one device."""
+        if config.TPU.async_checkpointing:
+            raise NotImplementedError(
+                "TPU.async_checkpointing True writes Orbax checkpoints in "
+                "the JAX package; the PyTorch port writes torch.save files "
+                "only (ROADMAP: Orbax and async checkpoints); set it to "
+                "False"
+            )
+        want = config.TPU.data_parallel_devices
+        visible = (torch.cuda.device_count() if self.device.type == "cuda"
+                   else 1)
+        devices = 1 if want in (0, 1) else (visible if want < 0 else want)
+        if devices > 1:
+            raise NotImplementedError(
+                f"TPU.data_parallel_devices {want} asks for {devices} "
+                "devices; the PyTorch port trains on one device "
+                "(ROADMAP: parallel/); set it to 1"
+            )
+
+    def _initialize_training(self, config) -> None:
+        """The policy and its optimizer for training; with
+        ``IL.load_from_ckpt`` the weights of ``IL.ckpt_to_load`` and, with
+        ``IL.is_requeue``, its optimizer state, epoch and step (JAX
+        base_trainer.py:169-224). The modules stay in eval mode but for
+        the recurrent ones, which cuDNN's backward needs in train mode:
+        BatchNorm is switched by the forward's ``training`` argument."""
+        load = config.IL.load_from_ckpt
+        policy, ckpt = self._build_policy(
+            config, config.IL.ckpt_to_load if load else None
+        )
+        policy.eval()
+        for module in policy.modules():
+            if isinstance(module, torch.nn.RNNBase):
+                module.train()
+        self.policy = policy
+        self.optimizer = make_optimizer(policy, config)
+        self.start_epoch, self.step_id = 0, 0
+        if ckpt is not None and config.IL.is_requeue and "optim_state" in ckpt:
+            optim_state = ckpt["optim_state"]
+            if not (isinstance(optim_state, dict)
+                    and "param_groups" in optim_state):
+                raise NotImplementedError(
+                    f"{config.IL.ckpt_to_load} holds an optax optimizer "
+                    "state (a JAX checkpoint); resuming it waits for the "
+                    "JAX-pickle Adam warm start (ROADMAP)"
+                )
+            self.optimizer.load_state_dict(optim_state)
+            self.start_epoch = ckpt["epoch"] + 1
+            self.step_id = ckpt["step_id"]
+        self._lane_rows = None
+        self._txt_cache_tokens = None
+
+    def save_training_checkpoint(self, file_name: str, dagger_it: int = 0,
+                                 epoch: int = 0, step_id: int = 0) -> None:
+        """The port's checkpoint with the optimizer state, the DAgger
+        iteration, epoch and step (JAX base_trainer.py:256-294)."""
+        save_checkpoint(
+            self.policy, self.config,
+            os.path.join(self.config.CHECKPOINT_FOLDER, file_name),
+            optim_state=self.optimizer.state_dict(), dagger_it=dagger_it,
+            epoch=epoch, step_id=step_id,
+        )
+
+    def _update_agent(
+        self,
+        observations: Dict[str, np.ndarray],
+        prev_actions: np.ndarray,
+        not_done_masks: np.ndarray,
+        corrected_actions: np.ndarray,
+        weights: np.ndarray,
+        tour_not_done_masks: Optional[np.ndarray] = None,
+        rnn_states: Optional[torch.Tensor] = None,
+    ):
+        """One BPTT update over a collated (T, N) batch of host arrays
+        (JAX base_trainer.py:689-739); an ``rnn_states`` carry continues
+        a sequence. Returns (loss, action loss, aux loss) as floats and
+        the final rnn_states."""
+        t, n = corrected_actions.shape
+        if rnn_states is None:
+            rnn_states = self.policy.initial_rnn_states(n, self.device)
+        if tour_not_done_masks is None:
+            tour_not_done_masks = not_done_masks
+
+        def dev(a, dtype=None):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                   device=self.device)
+
+        model = self.config.MODEL
+        update_map_bn = (model.policy_name == "MapCMAPolicy"
+                         and model.SEMANTIC_MAP_ENCODER.trainable)
+        with profiling.wall_range("train_step"), \
+                profiling.range_context("train_step"):
+            obs = {k: dev(v) for k, v in observations.items()}
+            loss, action_loss, aux_loss, rnn_out = train_step(
+                self.policy, self.optimizer, obs,
+                dev(prev_actions, torch.int64),
+                dev(np.asarray(not_done_masks).reshape(t, n), torch.float32),
+                dev(np.asarray(tour_not_done_masks).reshape(t, n),
+                    torch.float32),
+                dev(corrected_actions, torch.int64),
+                dev(weights, torch.float32),
+                rnn_states,
+                model.PROGRESS_MONITOR.use, model.PROGRESS_MONITOR.alpha,
+                update_map_bn,
+            )
+            losses = [float(x) for x in
+                      torch.stack([loss, action_loss, aux_loss]).cpu()]
+        # the weights changed: cached per-episode instruction features are
+        # stale
+        self._txt_cache_tokens = None
+        self.train_steps += 1
+        self.train_rows += t * n
+        return (*losses, rnn_out)
 
     @staticmethod
     def _load_external_encoders(config, state):
@@ -170,7 +377,7 @@ class BaseVLNCETrainer:
             observations, self.config.TASK_CONFIG.TASK.INSTRUCTION_SENSOR_UUID
         )
 
-    # -- fixed-lane bookkeeping -------------------------------------------------
+    # -- fixed-lane bookkeeping -----------------------------------------------
     # Device state (RNN hidden, world grid) keeps its first lane count for
     # a whole run; when an env pauses, only the host-side lane map shrinks.
     def _reset_lanes(self, num_lanes: int) -> None:
@@ -191,7 +398,7 @@ class BaseVLNCETrainer:
         full[rows] = arr
         return full
 
-    # -- one env step on the device ---------------------------------------------
+    # -- one env step on the device -------------------------------------------
     def _wire_device_obs(self, batch, transform) -> Dict[str, Any]:
         """Full-width obs for one step: only the keys the step reads; depth
         as uint16, uploaded with the semantic or RGB frame; pose,
@@ -342,7 +549,7 @@ class BaseVLNCETrainer:
                 rgb_frames = [rgb_frames[i] for i in state_index]
         return (envs,) + arrays + (batch, rgb_frames)
 
-    # -- eval entry point ---------------------------------------------------------
+    # -- eval entry point -----------------------------------------------------
     def eval(self) -> None:
         os.makedirs(self.config.TENSORBOARD_DIR, exist_ok=True)
         with TensorboardWriter(

@@ -1,6 +1,7 @@
 """TensorBoard writer (habitat-baselines TensorboardWriter equivalent) via
-tensorboardX; degrades to a no-op when the directory is empty like the
-reference."""
+tensorboardX, or ``torch.utils.tensorboard`` where tensorboardX is not
+installed; degrades to a no-op when the directory is empty like the
+reference, or when neither is installed."""
 
 from __future__ import annotations
 
@@ -13,12 +14,14 @@ class TensorboardWriter:
         if log_dir:
             try:
                 from tensorboardX import SummaryWriter
-
-                self._writer = SummaryWriter(
-                    log_dir, flush_secs=flush_secs, purge_step=purge_step
-                )
             except ImportError:
-                pass
+                try:
+                    from torch.utils.tensorboard import SummaryWriter
+                except ImportError:
+                    return
+            self._writer = SummaryWriter(
+                log_dir, flush_secs=flush_secs, purge_step=purge_step
+            )
 
     def add_scalar(self, tag: str, value, step) -> None:
         if self._writer:

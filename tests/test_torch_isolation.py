@@ -99,6 +99,20 @@ def test_entry_point_refuses_a_missing_card():
     assert "no CUDA device" in proc.stderr
 
 
+def test_entry_point_refuses_a_missing_card_to_train():
+    """``--run-type train`` too: no card and no ``--device cpu``."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    proc = subprocess.run(
+        [sys.executable, "-m", "ivlnce_tpu_torch.run", "--run-type", "train",
+         "--exp-config", "configs/fake/map_cma_train_tf.yaml",
+         "LOG_FILE", os.devnull],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+
+
 def test_chip_smoke_fails_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
@@ -232,10 +246,30 @@ def test_trainer_names_resolve_to_eval_trainers(name, tmp_path):
     assert registry.get_trainer(name) is type(trainer)
 
 
+# what each trainer's train() refuses before any collection: the tour-BPTT
+# training (its own slice), Orbax checkpoints, more than one device
+REFUSALS = {
+    "dagger": (("TPU.async_checkpointing", "True"), "Orbax"),
+    "iterative_collection_dagger": (("TPU.data_parallel_devices", "2"),
+                                    "one device"),
+    "iterative_dagger": ((), "tour-BPTT slice"),
+}
+
+
 @pytest.mark.parametrize("name", TRAINERS)
-def test_training_waits_for_its_slice(name, tmp_path):
-    with pytest.raises(NotImplementedError, match="training slice"):
-        _trainer(name, tmp_path).train()
+def test_training_waits_for_its_slice(name, tmp_path, monkeypatch):
+    from ivlnce_tpu_torch.trainers.dagger_trainer import DaggerTrainer
+
+    def no_collection(self, *args, **kwargs):
+        raise AssertionError("collection ran before the refusal")
+
+    monkeypatch.setattr(DaggerTrainer, "_update_dataset", no_collection)
+    opts, message = REFUSALS[name]
+    trainer = _trainer(name, tmp_path, *opts, "IL.DAGGER.lmdb_features_dir",
+                       str(tmp_path / "traj.lmdb"))
+    with pytest.raises(NotImplementedError, match=message):
+        trainer.train()
+    assert not os.path.exists(tmp_path / "traj.lmdb")
 
 
 def test_eval_writes_one_video_per_episode(tmp_path, caplog):
@@ -282,6 +316,10 @@ def test_eval_writes_one_video_per_episode(tmp_path, caplog):
     "envs/habitat_backend.py", "tasks/maps.py", "utils/viz.py",
     "utils/profiling.py", "models/checkpoint_io.py",
     "mapping/obs_transforms.py",
+    # the training slice
+    "trainers/trajectory_store.py",
+    "utils/prefetch.py", "utils/tb.py", "models/map_encoder.py",
+    "models/rnn.py",
 ))
 def test_latent_and_episodic_modules_stand_alone(module):
     """The modules of the LatentCMA and episodic evals, each on its own:
