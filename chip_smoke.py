@@ -78,7 +78,19 @@ Phases (any failure ends the run with a nonzero exit):
    ``dagger`` trainer): no mapper kernel, depth and RGB features stored;
    (d) 20 of (a)'s train steps traced, device time by range
    (train_encode, train_rnn, train_loss, backward, optimizer,
-   map_bn_stats) and the busy share.
+   map_bn_stats) and the busy share;
+15. tour-BPTT training at full width (configs/fake/tour_cma_train.yaml:
+   LatentCMA with its tour memory, the ``iterative_dagger`` trainer, as
+   in phase 14 with ``TPU.async_checkpointing True``): (a) through
+   ``run_exp(..., "train")``: the tours index at store key 0, one train
+   step per ``TourSampler`` batch, no mapper kernel, the asynchronous
+   checkpoint on disk bit for bit the trainer's final weights and
+   optimizer state; collection env steps/s, train steps/s and rows/s,
+   the host-phase split and peak memory; (b) two consecutive sampler
+   batches of (a)'s store, a lane continuing its tour from the first
+   into the second, on the card and on the CPU with the trained
+   weights, each carrying its own RNN state from the first batch into
+   the second: loss terms, carried states and every gradient.
 
 Prints the kernels as one JSON line and, last, the device as JSON.
 Imports nothing of JAX.
@@ -1890,7 +1902,8 @@ def phase_videos_and_trace(card: str, tmp: str, ckpt: str) -> dict:
 
 # -- phase 14: training -------------------------------------------------------
 TRAIN_CONFIGS = {"train_map_cma": "configs/fake/map_cma_train_tf.yaml",
-                 "train_latent": "configs/fake/latent_cma_train.yaml"}
+                 "train_latent": "configs/fake/latent_cma_train.yaml",
+                 "train_tour": "configs/fake/tour_cma_train.yaml"}
 TRAIN_RANGES = ("train_encode", "train_rnn", "train_loss", "backward",
                 "optimizer", "map_bn_stats")
 TRAIN_TRACE_WARMUP, TRAIN_TRACE_STEPS = 5, 20
@@ -1922,7 +1935,7 @@ def train_opts(tmp: str, run: str) -> list:
     ]
 
 
-def phase_train(card: str, tmp: str, path: str) -> dict:
+def phase_train(card: str, tmp: str, path: str, extra=()) -> dict:
     """Phase 14a / 14c: ``run_exp(config, "train")`` on the card, the
     launch counters set to 0 just before and read just after: the
     trajectory store, the checkpoints with the optimizer state, finite
@@ -1935,7 +1948,7 @@ def phase_train(card: str, tmp: str, path: str) -> dict:
     from ivlnce_tpu_torch.trainers.trajectory_store import TrajectoryStore
     from ivlnce_tpu_torch.utils import profiling
 
-    opts = train_opts(tmp, path)
+    opts = train_opts(tmp, path) + list(extra)
     torch.cuda.reset_peak_memory_stats()
     S.launches.reset()
     t0 = time.perf_counter()
@@ -1967,7 +1980,9 @@ def phase_train(card: str, tmp: str, path: str) -> dict:
     store_dir = trainer.lmdb_features_dir
     with TrajectoryStore(store_dir) as store:
         records = store.count()
-        obs = store.get(0)[0]
+        # after a tour collection, key 0 holds the tours index
+        first = int(isinstance(store.get(0), dict))
+        obs = store.get(first)[0]
     want = {"depth_features"} | ({"occupancy_map", "semantic_map"}
                                  if mapped else {"rgb_features"})
     if not want <= set(obs) or {"depth", "rgb"} & set(obs):
@@ -2280,6 +2295,222 @@ def phase_train_trace(card: str, trainer_summary: dict, trainer) -> dict:
     return summary
 
 
+# -- phase 15: tour-BPTT training ----------------------------------------------
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+
+
+def bit_mismatches(got, want, where: str = "") -> list:
+    """The paths at which ``got`` differs from ``want`` (nested dicts,
+    lists and tuples of tensors and plain values): tensors by dtype, shape
+    and every byte."""
+    if isinstance(want, torch.Tensor):
+        if (not isinstance(got, torch.Tensor) or got.dtype != want.dtype
+                or got.shape != want.shape
+                or not torch.equal(_bits(got), _bits(want))):
+            return [where]
+        return []
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or got.keys() != want.keys():
+            return [where]
+        return [m for k in want
+                for m in bit_mismatches(got[k], want[k], f"{where}.{k}")]
+    if isinstance(want, (list, tuple)):
+        if not isinstance(got, (list, tuple)) or len(got) != len(want):
+            return [where]
+        return [m for i, (g, w) in enumerate(zip(got, want))
+                for m in bit_mismatches(g, w, f"{where}[{i}]")]
+    return [] if got == want else [where]
+
+
+def phase_tour_train(card: str, tmp: str) -> tuple:
+    """Phase 15a: ``run_exp(tour_cma_train.yaml, "train")`` on the card
+    through ``phase_train`` (no mapper launch) with asynchronous
+    checkpoints: the tours index, one train step per TourSampler batch,
+    and the last checkpoint on disk equal bit for bit to the trainer's
+    final ``state_dict`` and optimizer state."""
+    from ivlnce_tpu_torch.trainers.tour_dataset import TourSampler
+    from ivlnce_tpu_torch.trainers.trajectory_store import TrajectoryStore
+
+    summary, trainer = phase_train(card, tmp, "train_tour",
+                                   ("TPU.async_checkpointing", "True"))
+    config = trainer.config
+    if not config.TPU.async_checkpointing:
+        raise SystemExit("train_tour: the checkpoints were not asynchronous")
+    with TrajectoryStore(trainer.lmdb_features_dir) as store:
+        tours = store.get(0)["tours_to_idxs"]
+    episodes = sorted(i for v in tours.values() for i in v)
+    if episodes != list(range(1, summary["records"])):
+        raise SystemExit(f"train_tour: the tours index {tours} does not "
+                         f"cover the {summary['records'] - 1} episodes")
+    per_epoch = TourSampler(tours, config.IL.batch_size,
+                            shuffle=False).get_num_batches()
+    want_steps = per_epoch * config.IL.epochs * config.IL.DAGGER.iterations
+    if trainer.train_steps != want_steps:
+        raise SystemExit(f"train_tour: {trainer.train_steps} train steps, "
+                         f"TourSampler gives {want_steps}")
+    ckpt_dir = config.CHECKPOINT_FOLDER
+    left = [f for f in os.listdir(ckpt_dir) if f.endswith(".tmp")]
+    on_disk = torch.load(summary["checkpoint"], map_location="cpu",
+                         weights_only=True)
+    mismatches = (
+        bit_mismatches(on_disk["state_dict"], trainer.policy.state_dict(),
+                       "state_dict")
+        + bit_mismatches(on_disk["optim_state"],
+                         trainer.optimizer.state_dict(), "optim_state"))
+    if mismatches or left:
+        raise SystemExit(f"train_tour: the asynchronous checkpoint differs "
+                         f"at {mismatches[:8]}; temporary files {left}")
+    summary.update(tours=tours, tours_count=len(tours),
+                   sampler_batches_per_epoch=per_epoch,
+                   async_checkpoint_tensors=len(on_disk["state_dict"]))
+    print(f"  [{card}] tours index: {len(tours)} tours of "
+          f"{sorted(len(v) for v in tours.values())} episodes "
+          f"({summary['records']} records with the index): {tours}")
+    print(f"  {trainer.train_steps} train steps = {per_epoch} TourSampler "
+          f"batches x {config.IL.epochs} epochs; wall ms per train step "
+          f"{summary['wall_ms_per_train_step']:.4f}; the asynchronous "
+          f"checkpoint {os.path.basename(summary['checkpoint'])} equals the "
+          f"final weights and optimizer state bit for bit")
+    return summary, trainer
+
+
+def _tour_grads(policy, batch, rnn_states, device):
+    """The loss terms, every parameter's gradient (zeros where none) and
+    the final RNN state of one training forward and backward of a tour
+    batch from ``rnn_states``."""
+    from ivlnce_tpu_torch.trainers.base_trainer import train_loss
+
+    obs, prev, ep_masks, tour_masks, corrected, weights = batch
+    t, n = corrected.shape
+
+    def dev(a, dt=None):
+        x = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return x.to(dt) if dt is not None else x
+
+    cfg = policy.model_config.PROGRESS_MONITOR
+    policy.zero_grad(set_to_none=True)
+    terms = train_loss(
+        policy, {k: dev(v) for k, v in obs.items()}, dev(prev),
+        dev(ep_masks.reshape(t, n), torch.float32),
+        dev(tour_masks.reshape(t, n), torch.float32), dev(corrected),
+        dev(weights, torch.float32), rnn_states, cfg.use, cfg.alpha)
+    terms[0].backward()
+    grads = {k: (torch.zeros_like(p) if p.grad is None else p.grad)
+             .detach().double().cpu()
+             for k, p in policy.named_parameters()}
+    return [float(x.detach()) for x in terms[:3]], grads, terms[3].detach()
+
+
+def phase_tour_reference(card: str, trainer) -> dict:
+    """Phase 15b: two consecutive TourSampler batches of 15a's store in
+    which a lane continues its tour, with 15a's trained weights, on the
+    card and on the CPU; each side starts the first batch from a fresh
+    state and carries its own final state into the second
+    (``carry_in``). Loss terms within TRAIN_LOSS_RTOL; the carried states
+    and every gradient within TRAIN_GRAD_TOL of the CPU tensor's largest
+    |value|, but for the text keys' bias, whose gradient vanishes in exact
+    arithmetic (TRAIN_NOISE_TOL of the largest gradient, as in 14b)."""
+    import copy
+
+    from ivlnce_tpu_torch.trainers.iterative_dagger_trainer import carry_in
+    from ivlnce_tpu_torch.trainers.tour_dataset import (
+        TourSampler,
+        TourTrajectoryDataset,
+    )
+    from ivlnce_tpu_torch.trainers.trajectory_store import TrajectoryStore
+
+    config = trainer.config
+    with TrajectoryStore(trainer.lmdb_features_dir) as store:
+        tours = store.get(0)["tours_to_idxs"]
+    sampler = TourSampler(tours, config.IL.batch_size,
+                          rng=np.random.RandomState(SEED))
+    dataset = TourTrajectoryDataset(trainer.lmdb_features_dir,
+                                    config.IL.use_iw,
+                                    config.IL.inflection_weight_coef)
+    dataset.set_tour_done_idxs(sampler.get_tour_done_idxs())
+    batches = list(dataset.batches(sampler))
+    dataset.close()
+    n = config.IL.batch_size
+    k = next((k for k in range(len(batches) - 1)
+              if (batches[k + 1][3].reshape(-1, n)[0] == 1).any()), None)
+    if k is None:
+        raise SystemExit("no two consecutive tour batches in which a lane "
+                         "continues its tour")
+    pair = [({key: v.astype(np.float32) if v.dtype == np.float16 else v
+              for key, v in b[0].items()},) + b[1:]
+            for b in batches[k:k + 2]]
+    continuing = int((pair[1][3].reshape(-1, n)[0] == 1).sum())
+    sides = {}
+    for label, device in (("cpu", "cpu"), ("card", "cuda")):
+        policy = copy.deepcopy(trainer.policy).to(device)
+        carry, runs = None, []
+        t0 = time.perf_counter()
+        for batch in pair:
+            rnn_in = carry_in(policy, config.MODEL, carry, n, device)
+            terms, grads, carry = _tour_grads(policy, batch, rnn_in, device)
+            runs.append((terms, grads, carry.double().cpu()))
+        print(f"  {label}: two batches forward and backward in "
+              f"{time.perf_counter() - t0:.2f} s")
+        sides[label] = runs
+    loss_err, carry_err, worst, noise, failed = 0.0, 0.0, (0.0, None), 0.0, []
+    for b, ((cpu_terms, cpu, cpu_rnn), (card_terms, on_card, card_rnn)) in \
+            enumerate(zip(sides["cpu"], sides["card"])):
+        loss_err = max([loss_err] + [abs(a - c) / abs(c) for a, c in
+                                     zip(card_terms, cpu_terms) if c])
+        carry_err = max(carry_err, float((card_rnn - cpu_rnn).abs().max())
+                        / float(cpu_rnn.abs().max()))
+        largest = max(float(g.abs().max()) for g in cpu.values())
+        for name, g in cpu.items():
+            if name == "net.text_k.bias":
+                ratio = max(float(on_card[name].abs().max()),
+                            float(g.abs().max())) / largest
+                noise = max(noise, ratio)
+                ok = ratio <= TRAIN_NOISE_TOL
+            else:
+                diff = float((on_card[name] - g).abs().max())
+                scale = float(g.abs().max())
+                ratio = diff / scale if scale else (
+                    0.0 if diff == 0 else math.inf)
+                if ratio > worst[0]:
+                    worst = (ratio, f"batch {b}: {name}")
+                ok = ratio <= TRAIN_GRAD_TOL
+            if not ok:
+                failed.append((b, name, ratio))
+    summary = {"card": card, "batches": [k, k + 1], "T": [b[4].shape[0]
+                                                          for b in pair],
+               "N": n, "continuing_lanes": continuing,
+               "loss_terms_cpu": [r[0] for r in sides["cpu"]],
+               "loss_terms_card": [r[0] for r in sides["card"]],
+               "loss_rel_err": loss_err, "carry_err": carry_err,
+               "grad_worst": {"ratio": worst[0], "tensor": worst[1]},
+               "vanishing_noise": noise}
+    print(f"  tour batches {k} and {k + 1} card vs CPU [{card}], T "
+          f"{summary['T']}, N={n}, {continuing} lanes continuing a tour: "
+          f"loss terms worst relative {loss_err:.3e}; carried states "
+          f"{carry_err:.3e} of their largest |value|; worst gradient "
+          f"{worst[0]:.3e} ({worst[1]}); text_k.bias noise {noise:.3e} of "
+          f"the largest gradient")
+    if (loss_err > TRAIN_LOSS_RTOL or carry_err > TRAIN_GRAD_TOL
+            or failed):
+        raise SystemExit(f"the card's tour batches disagree with the CPU's: "
+                         f"loss {loss_err:.3e}, carry {carry_err:.3e}, "
+                         f"tensors {failed[:8]}")
+    return summary
+
+
+def phase_tour_training(card: str, tmp: str) -> dict:
+    """Phase 15: tour-BPTT training through run_exp (15a) and two carried
+    tour batches card vs CPU (15b)."""
+    t0 = time.perf_counter()
+    print("  15a: tour-BPTT training through run_exp")
+    train, trainer = phase_tour_train(card, tmp)
+    print("  15b: two carried tour batches, card vs CPU")
+    reference = phase_tour_reference(card, trainer)
+    print(f"  phase 15 took {time.perf_counter() - t0:.2f} s")
+    return {"train_tour": train, "tour_reference": reference}
+
+
 def phase_training(card: str, tmp: str, one_tour) -> dict:
     """Phase 14: MapCMA teacher forcing (14a) and its trained checkpoint
     evaluated on the card, one full-width train step card vs CPU (14b),
@@ -2450,6 +2681,10 @@ def main() -> int:
         training = phase_training(card, tmp, one_tour)
         e2e["train_map_cma_eval"] = training.pop("train_map_cma_eval")
 
+        print("phase 15: tour-BPTT training through run_exp, two carried "
+              "batches card vs CPU")
+        training.update(phase_tour_training(card, tmp))
+
     # each kernel's launches come from the path that runs it
     kernel_path = {"accumulate": "iterative", "rasterize": "iterative",
                    "known_load": "known"}
@@ -2477,7 +2712,8 @@ def main() -> int:
             "launches_by_path": {
                 **{p: v["launches"][k] for p, v in e2e.items()},
                 **{p: training[p]["launches"][k]
-                   for p in ("train_map_cma", "train_latent")}},
+                   for p in ("train_map_cma", "train_latent",
+                             "train_tour")}},
             "pass_ms": timing[k]["pass_ms"],
         }
         for k in ("accumulate", "rasterize", "known_load")

@@ -14,7 +14,8 @@
   the port's names: a policy checkpoint (``load_reference_policy_checkpoint``),
   the DDPPO depth encoder, RedNet and the pretrained map encoder.
 - ``load_jax_pickle``: the JAX package's own pickles, read without
-  importing JAX.
+  importing JAX; ``adam_state_from_optax`` resumes their optax Adam
+  state in the port's ``torch.optim.Adam``.
 """
 
 from __future__ import annotations
@@ -329,3 +330,96 @@ def load_jax_pickle(path: str) -> Dict[str, Any]:
     wrote."""
     with open(path, "rb") as f:
         return _JaxFreeUnpickler(f).load()
+
+
+# optax's state classes, by name (they come back as InertJaxObjects): the
+# containers ``adam_state_from_optax`` walks, and Adam's own state
+_OPTAX_CONTAINERS = ("MultiTransformState", "PartitionState", "MaskedState")
+_OPTAX_EMPTY = ("EmptyState", "ScaleState")
+_BN_STATISTICS = ("running_mean", "running_var", "num_batches_tracked")
+
+
+def _adam_states(node, where: str = "optim_state") -> list:
+    """The ``ScaleByAdamState``s of an optax state read by
+    ``load_jax_pickle``: ``optax.adam``'s ``(ScaleByAdamState,
+    EmptyState)``, or ``multi_transform``'s labels, each a
+    ``MaskedState`` over that tuple. Anything else raises, naming it."""
+    if isinstance(node, (tuple, list)):
+        return [s for i, v in enumerate(node)
+                for s in _adam_states(v, f"{where}[{i}]")]
+    if isinstance(node, dict):
+        return [s for k, v in node.items()
+                for s in _adam_states(v, f"{where}.{k}")]
+    name = type(node).__name__
+    if isinstance(node, InertJaxObject):
+        if name == "ScaleByAdamState":
+            return [node]
+        if name in _OPTAX_EMPTY:
+            return []
+        if name in _OPTAX_CONTAINERS:
+            return _adam_states(list(node.args), f"{where}.{name}")
+    raise ValueError(f"{where}: {name} is not a state of optax.adam or of "
+                     "its multi_transform")
+
+
+def _unmasked(tree):
+    """``tree`` without the ``MaskedNode`` leaves a masked optax state
+    holds for the parameters of another label."""
+    if isinstance(tree, dict):
+        return {k: _unmasked(v) for k, v in tree.items()
+                if type(v).__name__ != "MaskedNode"}
+    return tree
+
+
+def adam_state_from_optax(optim_state, optimizer: torch.optim.Adam,
+                          policy: torch.nn.Module) -> None:
+    """Resume the JAX trainer's optax Adam (``optax.adam``, or the
+    ``SEMANTIC_MAP_ENCODER.custom_lr`` ``multi_transform`` of two) in the
+    port's ``optimizer`` over ``policy``'s parameters: each parameter's
+    ``exp_avg`` / ``exp_avg_sq`` are optax's ``mu`` / ``nu`` in the port's
+    names and layout (``params_from_jax``, so convolution moments go HWIO
+    -> OIHW as the weights do), its ``step`` its label's ``count``.
+
+    Moments of BatchNorm running statistics (the map encoder's, the RGB
+    trunk's) are dropped: the JAX package keeps the statistics in its
+    parameter tree, where the port keeps buffers, which Adam never
+    moves. Any other moment without a port parameter, a port parameter
+    without a moment, and a shape that differs raise, naming the
+    tensor."""
+    from ivlnce_tpu_torch.models.convert import params_from_jax
+
+    params = dict(policy.named_parameters())
+    moments: Dict[str, Dict[str, Any]] = {}
+    for adam in _adam_states(optim_state):
+        count, mu, nu = adam.args
+        exp_avg = params_from_jax(_unmasked(mu))
+        exp_avg_sq = params_from_jax(_unmasked(nu))
+        for name, m in exp_avg.items():
+            if name.endswith(_BN_STATISTICS):
+                continue
+            if name not in params:
+                raise KeyError(f"optax moment {name} has no parameter in "
+                               "the port's policy")
+            if name in moments:
+                raise ValueError(f"two optax states hold moments of {name}")
+            shape = tuple(params[name].shape)
+            for got in (m, exp_avg_sq[name]):
+                if tuple(got.shape) != shape:
+                    raise ValueError(
+                        f"shape mismatch at {name}: optax moment "
+                        f"{tuple(got.shape)} vs parameter {shape}")
+            moments[name] = {
+                "step": torch.tensor(float(np.asarray(count)),
+                                     dtype=torch.float32),
+                "exp_avg": m,
+                "exp_avg_sq": exp_avg_sq[name],
+            }
+    missing = sorted(set(params) - set(moments))
+    if missing:
+        raise KeyError(f"no optax moments for the parameters {missing}")
+    names = {id(p): name for name, p in params.items()}
+    order = [names[id(p)] for group in optimizer.param_groups
+             for p in group["params"]]
+    state = optimizer.state_dict()
+    state["state"] = {i: moments[name] for i, name in enumerate(order)}
+    optimizer.load_state_dict(state)

@@ -1,13 +1,15 @@
-"""Native runtime components (C++ via ctypes), built on demand: the store
-half of ``ivlnce_tpu/native/__init__.py``.
+"""Native runtime components (C++ via ctypes), built on demand: the
+port's copy of ``ivlnce_tpu/native/__init__.py``.
 
 - libivlnce_store.so: append-only trajectory record store (LMDB
   replacement for the DAgger trainers).
+- libivlnce_dtw.so: windowed DTW for tour-nDTW evaluation.
 
 ``build()`` compiles with the in-tree Makefile into ``build/native/`` of
 the checkout the first time a library is requested; the trajectory store
-uses its format-compatible Python engine when no toolchain is available
-(see trainers/trajectory_store.py).
+uses its format-compatible Python engine and t-nDTW the numpy DTW when
+no toolchain is available (see trainers/trajectory_store.py,
+tasks/tour_ndtw.py).
 """
 
 from __future__ import annotations
@@ -81,4 +83,20 @@ def store_library() -> Optional[ctypes.CDLL]:
         lib.ts_close.restype = None
         lib.ts_close.argtypes = [ctypes.c_void_p]
         lib._ts_configured = True
+    return lib
+
+
+def dtw_library() -> Optional[ctypes.CDLL]:
+    lib = load_library("libivlnce_dtw.so")
+    if lib is not None and not getattr(lib, "_dtw_configured", False):
+        import numpy as np
+        from numpy.ctypeslib import ndpointer
+
+        lib.dtw_windowed.restype = ctypes.c_double
+        lib.dtw_windowed.argtypes = [
+            ndpointer(np.float64, flags="C_CONTIGUOUS"), ctypes.c_int64,
+            ndpointer(np.float64, flags="C_CONTIGUOUS"), ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64,
+        ]
+        lib._dtw_configured = True
     return lib

@@ -15,12 +15,17 @@ The ops, ``accumulate`` (K1), ``rasterize`` (K2) and ``known_load``
 ``csrc/mapper_kernels.cu``. The wrapper picks by the tensors' device: CPU
 tensors run the plain version, CUDA tensors the kernel (there is no
 other path).
+
+K4, the JAX package's older scatter-argmax forms (``segment_argmax``,
+``keep_highest_dedup``, ``scatter_argmax_grid_update``,
+``rasterize_argmax``), lies on no eval or training path: here it has its
+plain versions only, which take CPU tensors and raise on any other.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -542,3 +547,114 @@ def known_load(
                                 stream_arg(dev))
     launches.known_load += 1
     kernels.check(err, "mapper_known_load")
+
+
+# -----------------------------------------------------------------------------
+# K4: the older scatter-argmax forms (ivlnce_tpu/ops/scatter.py:45-205),
+# plain versions
+# -----------------------------------------------------------------------------
+# Each is a scatter-max of the keys, a gather back (a point is a candidate
+# iff it is valid and equals its cell's new max), then a scatter-min of
+# the candidates' indices, so ties go to the lowest point index. Invalid
+# points are parked at index 0 with -inf keys, as in the JAX package;
+# valid points must lie on the grid.
+class SegmentArgmax(NamedTuple):
+    max_values: torch.Tensor  # (num_segments,) max per segment (-inf if empty)
+    argmax: torch.Tensor  # (num_segments,) int32 winner index (N if empty)
+    winner_mask: torch.Tensor  # (N,) True for the unique winner of its segment
+
+
+def _k4_cpu(name: str, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.device.type != "cpu":
+            raise ValueError(
+                f"{name}: K4 has no kernel (no ported path calls it); its "
+                f"plain version takes CPU tensors, not {t.device} ones"
+            )
+
+
+def _first_winners(flat: torch.Tensor, is_max: torch.Tensor,
+                   cells: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(per-cell lowest candidate index (n where none), per-point winner
+    mask) for (..., n) points at ``flat`` cells."""
+    n = is_max.shape[-1]
+    idx = torch.arange(n, dtype=torch.int32).expand_as(is_max)
+    first = torch.full((cells,), n, dtype=torch.int32).scatter_reduce(
+        0, flat.reshape(-1), torch.where(is_max, idx, n).reshape(-1), "amin")
+    winner = is_max & (first[flat] == idx)
+    return first, winner
+
+
+def segment_argmax(values: torch.Tensor, segment_ids: torch.Tensor,
+                   num_segments: int, valid: torch.Tensor) -> SegmentArgmax:
+    """Per-segment max of the valid (N,) ``values`` and the lowest-index
+    argmax; ``segment_ids`` in [0, num_segments)."""
+    _k4_cpu("segment_argmax", values, segment_ids, valid)
+    ids = torch.where(valid, segment_ids, 0).long()
+    vals = torch.where(valid, values, float("-inf"))
+    maxes = torch.full((num_segments,), float("-inf"),
+                       dtype=values.dtype).scatter_reduce(0, ids, vals, "amax")
+    is_max = valid & (vals == maxes[ids])
+    argmaxes, winner = _first_winners(ids, is_max, num_segments)
+    return SegmentArgmax(maxes, argmaxes, winner)
+
+
+def keep_highest_dedup(heights: torch.Tensor, cell_ids: torch.Tensor,
+                       num_cells: int, valid: torch.Tensor) -> torch.Tensor:
+    """The mask of the single highest valid point per voxel cell (the
+    reference's KeepHighestSemanticPointcloud, mapper.py:428-474)."""
+    return segment_argmax(heights, cell_ids, num_cells, valid).winner_mask
+
+
+def _grid_cells(rows, cols, valid, shape) -> torch.Tensor:
+    """(B, N) flat cell indices into a (B, R, C) grid; invalid points at
+    each lane's cell (0, 0)."""
+    b, r_n, c_n = shape
+    r = torch.where(valid, rows, 0).long()
+    c = torch.where(valid, cols, 0).long()
+    return (torch.arange(b)[:, None] * r_n + r) * c_n + c
+
+
+def scatter_argmax_grid_update(
+    grid_key: torch.Tensor, grid_payload: torch.Tensor, rows: torch.Tensor,
+    cols: torch.Tensor, keys: torch.Tensor, payload: torch.Tensor,
+    valid: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """New (B, R, C) keys and (B, R, C, P) payloads: a valid point whose
+    key beats its cell's incumbent takes the cell; ties keep the
+    incumbent, and ties among new points go to the lowest index."""
+    _k4_cpu("scatter_argmax_grid_update", grid_key, grid_payload, rows, cols,
+            keys, payload, valid)
+    flat = _grid_cells(rows, cols, valid, grid_key.shape)
+    k = torch.where(valid, keys, float("-inf"))
+    old = grid_key.reshape(-1)
+    new_key = old.scatter_reduce(0, flat.reshape(-1), k.reshape(-1), "amax")
+    is_max = valid & (k == new_key[flat]) & (k > old[flat])
+    _, winner = _first_winners(flat, is_max, old.numel())
+    new_payload = grid_payload.reshape(old.numel(), -1).clone()
+    new_payload[flat[winner]] = payload[winner].to(new_payload.dtype)
+    return (new_key.reshape(grid_key.shape),
+            new_payload.reshape(grid_payload.shape))
+
+
+def rasterize_argmax(
+    rows: torch.Tensor, cols: torch.Tensor, keys: torch.Tensor,
+    values: torch.Tensor, valid: torch.Tensor, num_rows: int, num_cols: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A fresh (B, R, C) grid of (B, N) points: occupancy (uint8) is "any
+    valid point", the value the highest-key point's (ties to the lowest
+    index)."""
+    _k4_cpu("rasterize_argmax", rows, cols, keys, values, valid)
+    shape = (keys.shape[0], num_rows, num_cols)
+    cells = shape[0] * num_rows * num_cols
+    flat = _grid_cells(rows, cols, valid, shape)
+    occupancy = torch.zeros(cells, dtype=torch.uint8)
+    occupancy[flat[valid]] = 1
+    k = torch.where(valid, keys, float("-inf"))
+    key_grid = torch.full((cells,), float("-inf"), dtype=keys.dtype)
+    key_grid = key_grid.scatter_reduce(0, flat.reshape(-1), k.reshape(-1),
+                                       "amax")
+    _, winner = _first_winners(flat, valid & (k == key_grid[flat]), cells)
+    value_map = torch.zeros(cells, dtype=values.dtype)
+    value_map[flat[winner]] = values[winner]
+    return occupancy.reshape(shape), value_map.reshape(shape)

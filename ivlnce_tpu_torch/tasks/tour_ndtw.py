@@ -24,8 +24,22 @@ from ivlnce_tpu_torch.tasks.dtw import windowed_dtw
 
 
 def _windowed_dtw_dispatch(ap, gtp, alignments) -> float:
-    """The vectorized numpy windowed DTW (the JAX package's native C++
-    kernel is not carried over yet)."""
+    """Native C++ windowed DTW when available
+    (ivlnce_tpu_torch/native/dtw.cpp), else the vectorized numpy kernel."""
+    from ivlnce_tpu_torch import native
+
+    lib = native.dtw_library()
+    if lib is not None:
+        x = np.ascontiguousarray(ap, np.float64)
+        y = np.ascontiguousarray(gtp, np.float64)
+        aligns = np.ascontiguousarray(alignments, np.int64)
+        return float(
+            lib.dtw_windowed(
+                x, len(x), y, len(y),
+                aligns.ctypes.data if len(aligns) else None,
+                len(aligns),
+            )
+        )
     window = window_from_alignments(len(ap), len(gtp), alignments)
     return windowed_dtw(ap, gtp, window)
 

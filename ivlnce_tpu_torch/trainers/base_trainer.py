@@ -13,7 +13,8 @@ over a (T, N) batch (inflection-weighted cross-entropy plus the progress
 monitor, backward, Adam, then the map encoder's BatchNorm statistics);
 ``_update_agent`` feeds it a collated batch. The registered trainers
 (``dagger_trainer.py`` and its two iterative subclasses) collect the
-trajectories and run the loops."""
+trajectories and run the loops; ``save_training_checkpoint`` writes in
+the background with ``TPU.async_checkpointing``."""
 
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import contextlib
 import json
 import numbers
 import os
+import threading
 import time
 import zipfile
 from collections import defaultdict
@@ -58,6 +60,58 @@ def save_checkpoint(policy, config, path: str, **meta) -> None:
          **meta},
         path,
     )
+
+
+def _to_cpu(obj):
+    """A copy of ``obj`` (dicts, lists, tuples of tensors and plain
+    values) whose tensors are detached copies on the CPU."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
+class AsyncCheckpointWriter:
+    """``TPU.async_checkpointing``: the counterpart of the JAX package's
+    Orbax async save (base_trainer.py:267-283) in the port's format. The
+    caller copies the state off the device at once; one background thread
+    ``torch.save``s it to a temporary name and renames it into place, so a
+    reader never sees a partial file. Each save first waits for the
+    previous write; a write's error is raised by the next ``save`` or
+    ``wait``, never dropped."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def save(self, payload: Dict[str, Any], path: str) -> None:
+        self.wait()
+        self._thread = threading.Thread(target=self._write,
+                                        args=(payload, path),
+                                        name="checkpoint-writer", daemon=True)
+        self._thread.start()
+
+    def _write(self, payload, path: str) -> None:
+        tmp = f"{path}.{os.getpid()}.tmp"
+        try:
+            torch.save(payload, tmp)
+            os.replace(tmp, path)
+        except Exception as e:  # raised in the caller's thread
+            self._error = e
+            with contextlib.suppress(OSError):
+                os.remove(tmp)
+
+    def wait(self) -> None:
+        """Block until the last write is done; raise its error."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            error, self._error = self._error, None
+            raise error
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
@@ -179,6 +233,7 @@ class BaseVLNCETrainer:
         self.instruction_encodes = 0
         # training: the optimizer, and the train steps and their T*N rows
         self.optimizer = None
+        self.checkpoint_writer = AsyncCheckpointWriter()
         self.train_steps = 0
         self.train_rows = 0
         os.makedirs(config.CHECKPOINT_FOLDER, exist_ok=True)
@@ -231,14 +286,7 @@ class BaseVLNCETrainer:
     # -- training -------------------------------------------------------------
     def _check_training_options(self, config) -> None:
         """Refuse what the port's training cannot do, before any
-        collection: Orbax checkpoints and more than one device."""
-        if config.TPU.async_checkpointing:
-            raise NotImplementedError(
-                "TPU.async_checkpointing True writes Orbax checkpoints in "
-                "the JAX package; the PyTorch port writes torch.save files "
-                "only (ROADMAP: Orbax and async checkpoints); set it to "
-                "False"
-            )
+        collection: more than one device."""
         want = config.TPU.data_parallel_devices
         visible = (torch.cuda.device_count() if self.device.type == "cuda"
                    else 1)
@@ -253,8 +301,9 @@ class BaseVLNCETrainer:
     def _initialize_training(self, config) -> None:
         """The policy and its optimizer for training; with
         ``IL.load_from_ckpt`` the weights of ``IL.ckpt_to_load`` and, with
-        ``IL.is_requeue``, its optimizer state, epoch and step (JAX
-        base_trainer.py:169-224). The modules stay in eval mode but for
+        ``IL.is_requeue``, its optimizer state (the port's, or a JAX
+        pickle's optax Adam state: ``cio.adam_state_from_optax``), epoch
+        and step (JAX base_trainer.py:169-224). The modules stay in eval mode but for
         the recurrent ones, which cuDNN's backward needs in train mode:
         BatchNorm is switched by the forward's ``training`` argument."""
         load = config.IL.load_from_ckpt
@@ -270,14 +319,10 @@ class BaseVLNCETrainer:
         self.start_epoch, self.step_id = 0, 0
         if ckpt is not None and config.IL.is_requeue and "optim_state" in ckpt:
             optim_state = ckpt["optim_state"]
-            if not (isinstance(optim_state, dict)
-                    and "param_groups" in optim_state):
-                raise NotImplementedError(
-                    f"{config.IL.ckpt_to_load} holds an optax optimizer "
-                    "state (a JAX checkpoint); resuming it waits for the "
-                    "JAX-pickle Adam warm start (ROADMAP)"
-                )
-            self.optimizer.load_state_dict(optim_state)
+            if isinstance(optim_state, dict) and "param_groups" in optim_state:
+                self.optimizer.load_state_dict(optim_state)
+            else:  # the JAX trainer's pickle: optax Adam's moments
+                cio.adam_state_from_optax(optim_state, self.optimizer, policy)
             self.start_epoch = ckpt["epoch"] + 1
             self.step_id = ckpt["step_id"]
         self._lane_rows = None
@@ -286,12 +331,19 @@ class BaseVLNCETrainer:
     def save_training_checkpoint(self, file_name: str, dagger_it: int = 0,
                                  epoch: int = 0, step_id: int = 0) -> None:
         """The port's checkpoint with the optimizer state, the DAgger
-        iteration, epoch and step (JAX base_trainer.py:256-294)."""
-        save_checkpoint(
-            self.policy, self.config,
-            os.path.join(self.config.CHECKPOINT_FOLDER, file_name),
-            optim_state=self.optimizer.state_dict(), dagger_it=dagger_it,
-            epoch=epoch, step_id=step_id,
+        iteration, epoch and step (JAX base_trainer.py:256-294); with
+        ``TPU.async_checkpointing`` the state is copied to the CPU now and
+        written in the background (``checkpoint_writer``)."""
+        path = os.path.join(self.config.CHECKPOINT_FOLDER, file_name)
+        meta = {"optim_state": self.optimizer.state_dict(),
+                "dagger_it": dagger_it, "epoch": epoch, "step_id": step_id}
+        if not self.config.TPU.async_checkpointing:
+            save_checkpoint(self.policy, self.config, path, **meta)
+            return
+        self.checkpoint_writer.save(
+            _to_cpu({"state_dict": self.policy.state_dict(),
+                     "config": self.config.to_dict(), **meta}),
+            path,
         )
 
     def _update_agent(

@@ -569,12 +569,14 @@ class DaggerTrainer(BaseVLNCETrainer):
         return got[0][rows], out.rnn_states, features, batch
 
     # -- training (dagger_trainer.py:506-649) ---------------------------------
-    def _collect(self, data_it: int) -> None:
-        """One collection pass, timed and without autograd."""
+    def _collect(self, data_it: int, **kwargs):
+        """One collection pass, timed and without autograd; returns what
+        ``_update_dataset`` returns."""
         t0 = time.perf_counter()
         with torch.no_grad():
-            self._update_dataset(data_it)
+            out = self._update_dataset(data_it, **kwargs)
         self.collection_seconds += time.perf_counter() - t0
+        return out
 
     def train(self) -> None:
         t0 = time.perf_counter()
@@ -582,9 +584,34 @@ class DaggerTrainer(BaseVLNCETrainer):
         try:
             self._train()
         finally:
+            # the last asynchronous checkpoint is on disk, or its error
+            # raised, before train() returns
+            self.checkpoint_writer.wait()
             self.run_seconds = time.perf_counter() - t0
 
-    def _train(self) -> None:
+    def _log_train_step(self, writer, dagger_it: int, epoch: int,
+                        step_id: int, loss: float, action_loss: float,
+                        aux_loss: float) -> None:
+        """One train step's loss terms: the log line, the TensorBoard
+        scalars and ``self.losses``."""
+        logger.info(
+            f"train_loss: {loss:.4f} action: {action_loss:.4f} aux: "
+            f"{aux_loss:.4f} (dagger {dagger_it} epoch {epoch} batch "
+            f"{step_id})"
+        )
+        writer.add_scalar(f"train_loss_iter_{dagger_it}", loss, step_id)
+        writer.add_scalar(f"train_action_loss_iter_{dagger_it}", action_loss,
+                          step_id)
+        writer.add_scalar(f"train_aux_loss_iter_{dagger_it}", aux_loss,
+                          step_id)
+        self.losses.append((loss, action_loss, aux_loss))
+
+    def _start_training(self):
+        """What a training run does before its first collection: refuse
+        what the port cannot do, check (``IL.DAGGER.preload_lmdb_features``)
+        or drop the store, add the expert sensor to the config, and build
+        the obs transforms, the policy and its optimizer. Returns the
+        run's config."""
         config = self.config
         self._check_training_options(config)
         if config.IL.DAGGER.preload_lmdb_features:
@@ -607,8 +634,11 @@ class DaggerTrainer(BaseVLNCETrainer):
 
         self._setup_obs_transforms(config)
         self._initialize_training(config)
-
         os.makedirs(config.TENSORBOARD_DIR, exist_ok=True)
+        return config
+
+    def _train(self) -> None:
+        config = self._start_training()
         with TensorboardWriter(
             config.TENSORBOARD_DIR, flush_secs=self.flush_secs
         ) as writer:
@@ -659,25 +689,9 @@ class DaggerTrainer(BaseVLNCETrainer):
                                 corrected,
                                 weights,
                             )
-                            logger.info(
-                                f"train_loss: {loss:.4f} action: "
-                                f"{action_loss:.4f} aux: {aux_loss:.4f} "
-                                f"(dagger {dagger_it} epoch {epoch} "
-                                f"batch {step_id})"
-                            )
-                            writer.add_scalar(
-                                f"train_loss_iter_{dagger_it}", loss, step_id
-                            )
-                            writer.add_scalar(
-                                f"train_action_loss_iter_{dagger_it}",
-                                action_loss, step_id,
-                            )
-                            writer.add_scalar(
-                                f"train_aux_loss_iter_{dagger_it}",
-                                aux_loss, step_id,
-                            )
-                            self.losses.append(
-                                (loss, action_loss, aux_loss))
+                            self._log_train_step(
+                                writer, dagger_it, epoch, step_id, loss,
+                                action_loss, aux_loss)
                             step_id += 1
 
                     self.save_training_checkpoint(

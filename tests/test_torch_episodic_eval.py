@@ -10,7 +10,7 @@ identical and the stats JSONs equal, for
     (configs/fake/rxr_eval.yaml);
 (c) the LatentCMA tour eval with ``tour_memory_variant`` and
     ``memory_at_end`` through ``iterative_dagger`` (tour-nDTW, per-tour
-    stats and DTW data too, with the numpy DTW on both sides).
+    stats and DTW data too, with the native DTW on both sides).
 
 ``random`` is seeded before each eval: the vector env shuffles scenes
 over lanes with it."""
@@ -28,7 +28,6 @@ import ivlnce_tpu.mapping.obs_transforms  # noqa: F401
 import ivlnce_tpu.models  # noqa: F401
 import ivlnce_tpu.tasks  # noqa: F401
 import ivlnce_tpu.trainers  # noqa: F401
-from ivlnce_tpu import native
 from ivlnce_tpu.config import get_config as jax_config
 from ivlnce_tpu.utils import viz as jax_viz
 from ivlnce_tpu.utils.registry import registry as jax_registry
@@ -123,7 +122,6 @@ def _eval_pair(tmp_path, monkeypatch, config_path, opts, configure, seed,
             return _write(*args, **kwargs)
 
         monkeypatch.setattr(module, "generate_video", capture)
-    monkeypatch.setattr(native, "dtw_library", lambda: None)
     # the JAX trainer's own initialisation (eager, tens of seconds for the
     # ResNet-50s) takes these weights, which the checkpoint overwrites
     monkeypatch.setattr(type(jpol), "init_params", lambda self, key: params)

@@ -6,9 +6,9 @@ and tour-nDTW equal.
 
 The dataset is cut to one tour of two episodes per lane, so each lane
 crosses an episode boundary inside its tour with a persistent map. Both
-sides compute tour-nDTW with the vectorized numpy DTW: the JAX package
-would otherwise use its native C++ kernel, whose sums run in another
-order (about 1e-14 apart)."""
+sides compute tour-nDTW with their native C++ DTW, built from the same
+source, so the values are equal (``tests/test_torch_dtw.py`` holds the
+numpy DTWs too)."""
 
 import glob
 import gzip
@@ -28,7 +28,6 @@ import ivlnce_tpu.mapping.obs_transforms  # noqa: F401
 import ivlnce_tpu.models  # noqa: F401
 import ivlnce_tpu.tasks  # noqa: F401
 import ivlnce_tpu.trainers  # noqa: F401
-from ivlnce_tpu import native
 from ivlnce_tpu.config import get_config as jax_config
 from ivlnce_tpu.utils.registry import registry as jax_registry
 from ivlnce_tpu_torch.config import get_config as torch_config
@@ -119,8 +118,7 @@ def _load(results, pattern):
         return json.load(f)
 
 
-def test_iterative_eval_matches_jax(tmp_path, monkeypatch,
-                                    one_torch_thread):
+def test_iterative_eval_matches_jax(tmp_path, one_torch_thread):
     os.chdir(REPO)
     root = str(tmp_path)
     _tiny_dataset(os.path.join(root, "ds"))
@@ -141,7 +139,6 @@ def test_iterative_eval_matches_jax(tmp_path, monkeypatch,
     shutil.copy(jcfg.EVAL_CKPT_PATH_DIR, tcfg.EVAL_CKPT_PATH_DIR)
 
     actions = {"jax": [], "torch": []}
-    monkeypatch.setattr(native, "dtw_library", lambda: None)
     jt = jax_registry.get_trainer(jcfg.TRAINER_NAME)(jcfg)
     j_step = jt._policy_step
 

@@ -246,13 +246,13 @@ def test_trainer_names_resolve_to_eval_trainers(name, tmp_path):
     assert registry.get_trainer(name) is type(trainer)
 
 
-# what each trainer's train() refuses before any collection: the tour-BPTT
-# training (its own slice), Orbax checkpoints, more than one device
+# what each trainer's train() refuses before any collection: bfloat16
+# encoders (their own slice) and more than one device
 REFUSALS = {
-    "dagger": (("TPU.async_checkpointing", "True"), "Orbax"),
+    "dagger": (("TPU.compute_dtype", "bfloat16"), "bfloat16"),
     "iterative_collection_dagger": (("TPU.data_parallel_devices", "2"),
                                     "one device"),
-    "iterative_dagger": ((), "tour-BPTT slice"),
+    "iterative_dagger": (("TPU.data_parallel_devices", "2"), "one device"),
 }
 
 
@@ -312,7 +312,8 @@ def test_eval_writes_one_video_per_episode(tmp_path, caplog):
     "models/policy.py", "models/convert.py", "trainers/base_trainer.py",
     "trainers/dagger_trainer.py",
     "trainers/iterative_collection_dagger_trainer.py",
-    "trainers/iterative_dagger_trainer.py", "run.py",
+    "trainers/iterative_dagger_trainer.py", "trainers/tour_dataset.py",
+    "run.py",
     "envs/habitat_backend.py", "tasks/maps.py", "utils/viz.py",
     "utils/profiling.py", "models/checkpoint_io.py",
     "mapping/obs_transforms.py",

@@ -361,15 +361,13 @@ def test_scene_bounds_grid_matches_jax():
     np.testing.assert_array_equal(tt.state.origin, expect)
 
 
-def test_known_map_eval_matches_jax(tmp_path, monkeypatch,
-                                    one_torch_thread):
+def test_known_map_eval_matches_jax(tmp_path, one_torch_thread):
     """configs/fake/map_cma_eval_known.yaml at test size (2 lanes, 64x64
     sensors, hidden 64): the same weights on both sides, every step's
     actions identical, the stats JSONs equal, and both kernels' plain
     versions on the path."""
     import pickle
 
-    from ivlnce_tpu import native
     from ivlnce_tpu.config import get_config as jax_config
     from ivlnce_tpu.utils.registry import registry as jax_registry
     from ivlnce_tpu_torch.config import get_config as torch_config
@@ -405,7 +403,6 @@ def test_known_map_eval_matches_jax(tmp_path, monkeypatch,
                 "config": tcfg.to_dict()}, tcfg.EVAL_CKPT_PATH_DIR)
 
     actions = {"jax": [], "torch": []}
-    monkeypatch.setattr(native, "dtw_library", lambda: None)
     jt = jax_registry.get_trainer(jcfg.TRAINER_NAME)(jcfg)
     j_step = jt._policy_step
 
