@@ -18,10 +18,9 @@ Phases (any failure ends the run with a nonzero exit):
 4. K1 and K2 at B=64 and B=3 on a noise walk and a FakeSim walk: the
    kernels, the plain versions and the bound (CUDA events), and each
    kernel apart (``torch.profiler``); K3's whole load at B=64 (2^18
-   points per cloud) and at L=3 and L=1 (the val_seen clouds) against
-   the old load (the rows' clear, then K3's first design, kept under
-   ``mapper_known_load_v1``) in turns, each kernel of both apart, the
-   peak memory, and two bounds;
+   points per cloud) and at L=3 and L=1 (the val_seen clouds): the
+   kernel and the plain version, each kernel apart, the peak memory,
+   and two bounds;
 5. full-width steps on the card against the same steps on the CPU (plain
    versions): a mapper + MapCMA step (maps equal, logits and RNN states
    close), a known-map preload and three steps (maps equal), a RedNet
@@ -33,21 +32,20 @@ Phases (any failure ends the run with a nonzero exit):
 6. the port's iterative MapCMA evaluation through its entry point
    (``ivlnce_tpu_torch.run.run_exp``) at full width
    (configs/fake/map_cma_eval_iterative.yaml, seeded random weights),
-   with the kernels' launch counters set to 0 before and read after (and
-   K3's first design's counter unchanged);
+   with the kernels' launch counters set to 0 before and read after;
 7. the same evaluation again, over one tour per lane, with a window of
    policy steps traced by ``torch.profiler``: the device time of each
    named range of the step (mapper, semantics, encoders, GRU +
    attention, instruction encoder) and the card's busy share;
 8. the known-map evaluation (configs/fake/map_cma_eval_known.yaml, K3 and
-   K2) through ``run_exp`` at full width;
+   K2) through ``run_exp`` at full width, one tour per lane;
 9. the predicted-semantics evaluation (PredictedSemanticsIterativeMapper:
-   RedNet, K1 and K2) through ``run_exp``, then traced as in phase 7;
+   RedNet, K1 and K2) through ``run_exp``, one tour per lane, then traced
+   as in phase 7;
 10. the four LatentCMA tour baselines (plain, tour_memory,
    tour_memory_variant, and with memory_at_end) through ``run_exp`` and
-   ``iterative_dagger``, with no mapper: K1, K2 and K3 never launch (the
-   three that phase 11 does not trace walk one tour per lane, to keep
-   the script near half its time limit);
+   ``iterative_dagger``, with no mapper: K1, K2 and K3 never launch (one
+   tour per lane each, to keep the script near half its time limit);
 11. the memory_at_end baseline traced as in phase 7, with the RGB
    encoder's own range, against a float32 bound of its two ResNet-50s;
 12. the episodic evaluations through ``run_exp``: MapCMA with the
@@ -90,7 +88,25 @@ Phases (any failure ends the run with a nonzero exit):
    batches of (a)'s store, a lane continuing its tour from the first
    into the second, on the card and on the CPU with the trained
    weights, each carrying its own RNN state from the first batch into
-   the second: loss terms, carried states and every gradient.
+   the second: loss terms, carried states and every gradient;
+16. ``TPU.compute_dtype bfloat16`` (the depth, RGB and map encoders and
+   RedNet in bfloat16 on cast copies of their float32 weights): (a) the
+   depth encoder (256^2), the map encoder, the RGB ResNet-50 (224^2),
+   RedNet (256^2) and a full-width policy step of each family, each in
+   float32 and in bfloat16 on the card and on the CPU: the card's
+   bfloat16-vs-float32 error 0.1 to 2 times the CPU's, RedNet's labels
+   unchanged where the float32 margin is sure; (b) the iterative,
+   known-map and episodic evals (MapCMA, RxR) under bfloat16 through
+   ``run_exp``, K1-K3 launching as in float32, the iterative one traced;
+   (c) the predicted-semantics eval traced, the semantics range against
+   RedNet's bfloat16 bound (989 TFLOP/s); (d) ``4_pool_end_cma`` traced,
+   the RGB and depth ranges against their bfloat16 bounds; in every
+   bfloat16 trace the convolution and matrix kernels of the bfloat16
+   ranges compute in bfloat16 and those of gru_attention in float32 (by
+   kernel name); device ms per range beside phases 7, 9 and 11's float32
+   ones; (e) the three training configs under bfloat16: float32 stored
+   features, checkpoints and optimizer state, and a float32 map encoder
+   in the train step.
 
 Prints the kernels as one JSON line and, last, the device as JSON.
 Imports nothing of JAX.
@@ -104,6 +120,7 @@ import glob
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -416,8 +433,6 @@ KERNEL_NAMES = {
     "rasterize": ("rasterize_cluster",),
     "known_load": ("known_bin_scatter", "known_tile_load"),
 }
-# K3's first design, kept for phase 4's comparison
-KNOWN_V1_NAMES = ("known_load_max", "known_load_commit")
 
 
 def _step_ops(params, states, frame):
@@ -634,9 +649,7 @@ def warm_up() -> None:
     ops["current"][2]()
     load = next(clouds.edge_cases()).loads[0]
     args = _known_args(load, known_params(128), dev)
-    for old in (False, True):
-        st = M.init_state(2, 128, dev)
-        _known_op(st, *args, 0.05, old=old)()
+    _known_op(M.init_state(2, 128, dev), *args, 0.05)()
     flat = torch.zeros(16, dtype=torch.int64, device=dev)
     flat.scatter_reduce_(0, torch.zeros(4, dtype=torch.int64, device=dev),
                          torch.ones(4, dtype=torch.int64, device=dev), "amax")
@@ -775,8 +788,8 @@ def phase_known_vs_plain() -> float:
 
 
 def _known_words(xyz, counts, origin, g, half):
-    """Flat grid cells and packed words of the points K3 may store: the
-    cells the first design's atomic pass touches."""
+    """Flat grid cells and packed words of the points K3 may store (on
+    the grid, within the counts)."""
     from ivlnce_tpu_torch.ops import geometry as G
     from ivlnce_tpu_torch.ops import scatter as S
 
@@ -807,29 +820,16 @@ def _known_args(load, params, dev) -> tuple:
             torch.from_numpy(load.counts).to(dev))
 
 
-def _known_op(state, rows, origin, xyz, sem, counts, half, old=False,
-              plain=False):
-    """One whole load into ``state``'s rows ``rows``, as a call: the
-    current K3 (which clears the rows itself), the old load (the rows
-    cleared as ``mapping.mapper.clear_lanes`` clears them, with the rows'
-    index already on the card, then K3's first design) or the plain
-    version."""
-    from ivlnce_tpu_torch.ops import kernels
+def _known_op(state, rows, origin, xyz, sem, counts, half, plain=False):
+    """One whole load into ``state``'s rows ``rows``, as a call: K3 (which
+    clears the rows itself) or the plain version."""
     from ivlnce_tpu_torch.ops import scatter as S
 
     args = (state.word, state.aux, state.dropped, rows, origin, xyz, sem,
             counts, half)
     if plain:
         return lambda: S.known_load_plain(*args)
-    if not old:
-        return lambda: S.known_load(*args)
-    idx = rows.long()
-
-    def old_load():
-        state.word[idx] = S.EMPTY_WORD
-        state.aux[idx] = 0
-        kernels.known_load_v1(*args)
-    return old_load
+    return lambda: S.known_load(*args)
 
 
 def _peak_bytes(fn) -> int:
@@ -845,21 +845,19 @@ def _peak_bytes(fn) -> int:
 
 def time_known_load(card: str, label: str, params, load) -> dict:
     """One whole load (an untimed one, then the median of six timed ones
-    after the first): the current K3 and the old load (the clear, then
-    K3's first design) in turns, each on its own state, and the plain
-    version; the three states must be equal. Then each design's kernels
-    apart (``torch.profiler``; the old clear's kernels summed) and their
-    sum, the device time of either load; the peak memory each allocates;
-    a partial yardstick (one ``scatter_reduce_`` amax of the points'
-    packed words into an empty grid, without payload or clear); and two
-    byte bounds over 3.35 TB/s. The bound of the whole load charges what
-    the JAX function's result must hold: 12 bytes read per point within
-    the counts (its xyz), the winners' label bytes, 12 bytes written per
-    cell of every loaded row (word and payload), the rows, counts and
-    origins read and the drop counts written. The touched-cells bound
-    (the earlier one, which describes the first design's kernel on rows
-    cleared beforehand) charges 8 bytes read per touched cell and 12
-    written per stored cell in place of the rows."""
+    after the first) of K3 and of the plain version, each on its own
+    state; the two states must be equal. Then K3's kernels apart
+    (``torch.profiler``) and their sum, the load's device time; the peak
+    memory it allocates; a partial yardstick (one ``scatter_reduce_``
+    amax of the points' packed words into an empty grid, without payload
+    or clear); and two byte bounds over 3.35 TB/s. The bound of the whole
+    load charges what the JAX function's result must hold: 12 bytes read
+    per point within the counts (its xyz), the winners' label bytes, 12
+    bytes written per cell of every loaded row (word and payload), the
+    rows, counts and origins read and the drop counts written. The
+    touched-cells bound charges 8 bytes read per touched cell and 12
+    written per stored cell in place of the rows (a load into rows
+    cleared beforehand)."""
     from ivlnce_tpu_torch.mapping import mapper as M
     from ivlnce_tpu_torch.ops import scatter as S
 
@@ -867,30 +865,20 @@ def time_known_load(card: str, label: str, params, load) -> dict:
     g, half = params.grid_cells, params.half_res
     rows, origin, xyz, sem, counts = _known_args(load, params, dev)
     lanes, n = sem.shape
-    states = {d: M.init_state(lanes, g, dev)
-              for d in ("ms", "old_ms", "plain_ms")}
+    states = {d: M.init_state(lanes, g, dev) for d in ("ms", "plain_ms")}
     ops = {d: _known_op(st, rows, origin, xyz, sem, counts, half,
-                        old=d == "old_ms", plain=d == "plain_ms")
+                        plain=d == "plain_ms")
            for d, st in states.items()}
     cell, word = _known_words(xyz, counts, origin, g, half)
     touched = int(torch.unique(cell).numel())
-    times = {d: [] for d in ("ms", "old_wall_ms", "plain_ms",
-                             "yardstick_ms")}
+    times = {d: [] for d in ("ms", "plain_ms", "yardstick_ms")}
     # one load of each first, untimed: the first allocation of a size
     # (the scratch, 16 bytes per point) reaches cudaMalloc, which no timed
     # enqueue may wait on
     for op in ops.values():
         op()
-    for r in range(6):
-        # the old clear's index write waits on the card (it copies its
-        # scalar from the host), so the old load is timed with that wait;
-        # its device time is the sum of its kernels (below)
-        for d in (("old_ms", "ms") if r % 2 == 0 else ("ms", "old_ms")):
-            if d == "ms":
-                times["ms"].append(cuda_ms(ops["ms"]))
-            else:
-                times["old_wall_ms"].append(
-                    cuda_ms(ops["old_ms"], waits_on_card=True))
+    for _ in range(6):
+        times["ms"].append(cuda_ms(ops["ms"]))
         times["plain_ms"].append(cuda_ms(ops["plain_ms"], waits_on_card=True))
         flat = torch.full((lanes * g * g,), S.EMPTY_WORD, dtype=torch.int64,
                           device=dev)
@@ -898,28 +886,18 @@ def time_known_load(card: str, label: str, params, load) -> dict:
             lambda: flat.scatter_reduce_(0, cell, word, "amax")))
         del flat
     torch.cuda.synchronize()
-    new, old, plain = (states[d] for d in ("ms", "old_ms", "plain_ms"))
-    for other in (old, plain):
-        if not (torch.equal(new.word, other.word)
-                and torch.equal(new.aux, other.aux)
-                and torch.equal(new.dropped, other.dropped)):
-            raise SystemExit(f"the known-map loads disagree at {label}")
+    new, plain = states["ms"], states["plain_ms"]
+    if not (torch.equal(new.word, plain.word)
+            and torch.equal(new.aux, plain.aux)
+            and torch.equal(new.dropped, plain.dropped)):
+        raise SystemExit(f"the known-map loads disagree at {label}")
     stored = int((new.word != S.EMPTY_WORD).sum())
     del states["plain_ms"], plain, ops["plain_ms"]
 
     reps = 5
     passes = traced_kernel_ms(lambda: [ops["ms"]() for _ in range(reps)],
                               KERNEL_NAMES["known_load"], reps)
-    old_durs = complete_trace(lambda: [ops["old_ms"]() for _ in range(reps)],
-                              KNOWN_V1_NAMES, reps)
-    old_passes = {}
-    for n_ in KNOWN_V1_NAMES:
-        old_passes[n_] = float(np.median(
-            [d for name, ds in old_durs.items() if n_ in name for d in ds]))
-    old_passes["clear (summed)"] = sum(
-        d for name, ds in old_durs.items()
-        if not any(n_ in name for n_ in KNOWN_V1_NAMES) for d in ds) / reps
-    peak = {d: _peak_bytes(ops[d]) for d in ("ms", "old_ms")}
+    peak = _peak_bytes(ops["ms"])
 
     valid = int(counts.clamp(0, n).sum())
     small = lanes * 4 * 5
@@ -932,27 +910,21 @@ def time_known_load(card: str, label: str, params, load) -> dict:
         "bytes": whole,
         "touched_bound_ms": touched_bytes / HBM_BYTES_PER_S * 1e3,
         "touched_bytes": touched_bytes, "touched_cells": touched,
-        "stored_cells": stored, "pass_ms": passes, "old_pass_ms": old_passes,
-        "device_ms": sum(passes.values()),
-        "old_ms": sum(old_passes.values()), "peak_bytes": peak["ms"],
-        "old_peak_bytes": peak["old_ms"],
+        "stored_cells": stored, "pass_ms": passes,
+        "device_ms": sum(passes.values()), "peak_bytes": peak,
     })
-    result["speedup"] = result["old_ms"] / result["device_ms"]
     result["x_bound"] = result["ms"] / result["bound_ms"]
     r = result
     print(f"  known_load, {label}: {lanes} rows of G={g}, {valid} points "
           f"[{card}]: whole load {r['ms']:.4f} ms (its kernels summed "
-          f"{r['device_ms']:.4f}), old (clear + first design) kernels "
-          f"summed {r['old_ms']:.4f} ms ({r['speedup']:.2f}x), old with "
-          f"its wait on the card {r['old_wall_ms']:.4f} ms, plain "
-          f"{r['plain_ms']:.4f} ms; bound of the whole load "
-          f"{r['bound_ms']:.4f} ms ({whole} bytes, {r['x_bound']:.2f}x), "
-          f"touched-cells bound {r['touched_bound_ms']:.4f} ms "
-          f"({touched} touched, {stored} stored cells); yardstick "
-          f"scatter_reduce_ amax (partial) {r['yardstick_ms']:.4f} ms")
-    print(f"    kernels, profiler median of {reps} [{card}]: {passes}; old: "
-          f"{old_passes}; peak memory {peak['ms']} bytes (old "
-          f"{peak['old_ms']})")
+          f"{r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms; bound of "
+          f"the whole load {r['bound_ms']:.4f} ms ({whole} bytes, "
+          f"{r['x_bound']:.2f}x), touched-cells bound "
+          f"{r['touched_bound_ms']:.4f} ms ({touched} touched, {stored} "
+          f"stored cells); yardstick scatter_reduce_ amax (partial) "
+          f"{r['yardstick_ms']:.4f} ms")
+    print(f"    kernels, profiler median of {reps} [{card}]: {passes}; peak "
+          f"memory {peak} bytes")
     return result
 
 
@@ -1333,7 +1305,13 @@ PATHS = {
     "rxr": (RXR_CONFIG, ("NUM_ENVIRONMENTS", "2", "EVAL.LANGUAGES", "['*']"),
             (), KERNELS),
 }
-EPISODIC_PATHS = ("map_episodic", "rxr")
+# phase 16: the same evaluations under TPU.compute_dtype bfloat16
+BF16_OPTS = ("TPU.compute_dtype", "bfloat16")
+BF16_PATHS = ("iterative", "known", "predicted", "latent_4_pool_end_cma",
+              "map_episodic", "rxr")
+PATHS.update({f"{p}_bf16": (c, tuple(x) + BF16_OPTS, n, a)
+              for p, (c, x, n, a) in PATHS.items() if p in BF16_PATHS})
+EPISODIC_PATHS = ("map_episodic", "rxr", "map_episodic_bf16", "rxr_bf16")
 
 
 def _restart_recorder():
@@ -1365,6 +1343,27 @@ def _restart_recorder():
     def undo():
         BaseVLNCETrainer._policy_step, M.clear_lanes = policy_step, clear_lanes
     return record, undo
+
+
+def _step_stamps():
+    """Wrap the trainer's policy step to record the host time at the end
+    of each; returns the record and a function that undoes the
+    wrapping."""
+    from ivlnce_tpu_torch.trainers.base_trainer import BaseVLNCETrainer
+
+    stamps = []
+    policy_step = BaseVLNCETrainer._policy_step
+
+    def stamped(self, *args, **kwargs):
+        out = policy_step(self, *args, **kwargs)
+        stamps.append(time.perf_counter())
+        return out
+
+    BaseVLNCETrainer._policy_step = stamped
+
+    def undo():
+        BaseVLNCETrainer._policy_step = policy_step
+    return stamps, undo
 
 
 def one_tour_per_lane(tmp: str) -> tuple:
@@ -1417,7 +1416,6 @@ def phase_end_to_end(card: str, tmp: str, ckpt: str, path: str,
     """``run_exp`` eval of one path on the card (outputs under
     ``tmp/run``, ``run`` defaulting to the path's name), the launch
     counters set to 0 just before and read just after."""
-    from ivlnce_tpu_torch.ops import kernels
     from ivlnce_tpu_torch.ops import scatter as S
     from ivlnce_tpu_torch.run import run_exp
 
@@ -1427,20 +1425,19 @@ def phase_end_to_end(card: str, tmp: str, ckpt: str, path: str,
     results = os.path.join(tmp, run, "results")
     opts = eval_opts(tmp, run, ckpt, tuple(extra) + tuple(extra_opts))
     restarts, undo = (_restart_recorder() if episodic else (None, None))
+    stamps, unstamp = _step_stamps()
     torch.cuda.reset_peak_memory_stats()
     S.launches.reset()
-    v1_before = dict(kernels.v1_launches)
     t0 = time.perf_counter()
     try:
         trainer = run_exp(config, "eval", opts, device="cuda")
     finally:
+        unstamp()
         if undo is not None:
             undo()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: getattr(S.launches, k) for k in KERNELS}
-    if kernels.v1_launches != v1_before:
-        raise SystemExit(f"the {path} path launched K3's first design")
 
     prefix = "" if episodic else "iterative_"
     with open(os.path.join(results,
@@ -1464,6 +1461,12 @@ def phase_end_to_end(card: str, tmp: str, ckpt: str, path: str,
         "env_steps_per_s": trainer.env_steps / trainer.eval_seconds,
         "run_exp_seconds": wall,
         "wall_ms_per_step": trainer.eval_seconds * 1e3 / max(steps, 1),
+        # past the first TRACE_SKIP steps, which pay the process's first
+        # use of each convolution shape (cuDNN's plans)
+        "warm_wall_ms_per_step": (
+            (stamps[-1] - stamps[TRACE_SKIP]) * 1e3
+            / (len(stamps) - 1 - TRACE_SKIP)
+            if len(stamps) > TRACE_SKIP + 1 else None),
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "launches": launches,
         "instruction_encodes": trainer.instruction_encodes,
@@ -1488,7 +1491,8 @@ def phase_end_to_end(card: str, tmp: str, ckpt: str, path: str,
           f"{trainer.eval_seconds:.2f} s: "
           f"{summary['env_steps_per_s']:.2f} env steps/s, {steps} policy "
           f"steps, wall ms per policy step "
-          f"{summary['wall_ms_per_step']:.4f}; {summary['policy']} with "
+          f"{summary['wall_ms_per_step']:.4f} (past step {TRACE_SKIP}: "
+          f"{summary['warm_wall_ms_per_step']}); {summary['policy']} with "
           f"{summary['recurrent_layers']} recurrent layers, instruction "
           f"encodes {trainer.instruction_encodes}")
     print(f"  launches: {launches}; peak memory "
@@ -1541,7 +1545,8 @@ def phase_end_to_end(card: str, tmp: str, ckpt: str, path: str,
 
 
 RANGES = ("mapper", "semantics", "known_map_load", "encoders",
-          "rgb_encoder", "gru_attention", "instruction_encoder")
+          "depth_encoder", "map_encoder", "rgb_encoder", "gru_attention",
+          "instruction_encoder")
 TRACE_SKIP, TRACE_STEPS = 50, 100
 
 
@@ -1559,7 +1564,13 @@ def attribute_device_time(trace: dict, names=RANGES) -> dict:
     """Device microseconds of a Chrome trace by the named range its launch
     fell in. A kernel or copy is matched to its launching runtime call by
     the CUPTI correlation id; the call's host time places it in the
-    innermost ``record_function`` range of ``names``, or outside them."""
+    innermost ``record_function`` range of ``names``, or outside them.
+    A device event without a launch record whose correlation id precedes
+    every recorded launch was launched before the traced window (the
+    last warm-up step's tail, which the card's clock, converted to the
+    host's, can place a fraction of a millisecond inside the window): it
+    is left out and counted in ``before_window``; any other is
+    ``unmatched``."""
     launch_ts, ranges, device, steps = {}, [], [], []
     for ev in trace["traceEvents"]:
         cat, name = ev.get("cat"), ev.get("name", "")
@@ -1575,9 +1586,15 @@ def attribute_device_time(trace: dict, names=RANGES) -> dict:
     starts = [r[0] for r in ranges]
     by_range = defaultdict(float)
     by_kernel = defaultdict(lambda: defaultdict(float))
-    unmatched = 0
+    unmatched, before, device_us = 0, 0, 0.0
+    first = min((c for c in launch_ts if c is not None), default=None)
     for ev in device:
-        ts = launch_ts.get(ev.get("args", {}).get("correlation"))
+        corr = ev.get("args", {}).get("correlation")
+        ts = launch_ts.get(corr)
+        if ts is None and first is not None and corr is not None \
+                and corr < first:
+            before += 1
+            continue
         if ts is None:
             unmatched += 1
             where = "no launch record"
@@ -1585,10 +1602,12 @@ def attribute_device_time(trace: dict, names=RANGES) -> dict:
             where = _innermost(ranges, starts, ts) or "outside the ranges"
         by_range[where] += ev["dur"]
         by_kernel[ev["name"]][where] += ev["dur"]
+        device_us += ev["dur"]
     return {
         "by_range_us": dict(by_range),
         "by_kernel_us": {k: dict(v) for k, v in by_kernel.items()},
-        "device_us": sum(ev["dur"] for ev in device),
+        "device_us": device_us,
+        "before_window": before,
         "window_us": (max(e for _, e in steps) - min(b for b, _ in steps)
                       if steps else 0.0),
         "unmatched": unmatched,
@@ -1690,8 +1709,8 @@ def phase_trace(card: str, tmp: str, ckpt: str, wall_ms_per_step: float,
     if any(set(v) != {"mapper"} for v in mapper_kernels.values()):
         raise SystemExit(f"mapper kernels outside the mapper range: "
                          f"{mapper_kernels}")
-    if any(n in name for n in KNOWN_V1_NAMES for name in got["by_kernel_us"]):
-        raise SystemExit("K3's first design ran in the trace")
+    bf16_kernels = (check_bf16_kernels(got, path)
+                    if path.endswith("_bf16") else None)
     per_step = {k: us / 1e3 / TRACE_STEPS
                 for k, us in got["by_range_us"].items()}
     device_ms = got["device_us"] / 1e3 / TRACE_STEPS
@@ -1715,9 +1734,11 @@ def phase_trace(card: str, tmp: str, ckpt: str, wall_ms_per_step: float,
         "busy_share": device_ms / wall_ms_per_step,
         "traced_busy_share": got["device_us"] / got["window_us"],
         "mapper_kernels_ms_per_step": mapper_kernels,
+        "events_before_window": got["before_window"],
         "top_device_ms_per_step": largest(top, 10),
         "range_top_device_ms_per_step": {
             where: largest(d, 5) for where, d in range_top.items()},
+        "bf16_kernels": bf16_kernels,
     }
     print(f"  [{card}] {path}: {TRACE_STEPS} policy steps traced; device ms "
           f"per policy step {device_ms:.4f}, by range {per_step}")
@@ -1935,20 +1956,22 @@ def train_opts(tmp: str, run: str) -> list:
     ]
 
 
-def phase_train(card: str, tmp: str, path: str, extra=()) -> dict:
-    """Phase 14a / 14c: ``run_exp(config, "train")`` on the card, the
-    launch counters set to 0 just before and read just after: the
-    trajectory store, the checkpoints with the optimizer state, finite
-    losses, K1 and K2 once per collection step with a mapper and never
-    without; collection env steps/s, train steps/s and rows/s, the
-    host-phase split of the run and the peak device memory."""
+def phase_train(card: str, tmp: str, path: str, extra=(), run=None) -> dict:
+    """Phase 14a / 14c: ``run_exp(config, "train")`` on the card (outputs
+    under ``tmp/run``, ``run`` defaulting to the path's name), the launch
+    counters set to 0 just before and read just after: the trajectory
+    store, the checkpoints with the optimizer state, finite losses, K1
+    and K2 once per collection step with a mapper and never without;
+    collection env steps/s, train steps/s and rows/s, the host-phase
+    split of the run and the peak device memory."""
     from ivlnce_tpu_torch.ops import scatter as S
     from ivlnce_tpu_torch.run import run_exp
     from ivlnce_tpu_torch.trainers.base_trainer import load_checkpoint
     from ivlnce_tpu_torch.trainers.trajectory_store import TrajectoryStore
     from ivlnce_tpu_torch.utils import profiling
 
-    opts = train_opts(tmp, path) + list(extra)
+    run = run or path
+    opts = train_opts(tmp, run) + list(extra)
     torch.cuda.reset_peak_memory_stats()
     S.launches.reset()
     t0 = time.perf_counter()
@@ -1961,22 +1984,22 @@ def phase_train(card: str, tmp: str, path: str, extra=()) -> dict:
     expected = {"accumulate": steps if mapped else 0,
                 "rasterize": steps if mapped else 0, "known_load": 0}
     if launches != expected:
-        raise SystemExit(f"{path}: launches {launches} for {steps} "
+        raise SystemExit(f"{run}: launches {launches} for {steps} "
                          f"collection steps, expected {expected}")
     losses = np.asarray(trainer.losses)
     if not len(losses) or not np.isfinite(losses).all():
-        raise SystemExit(f"{path}: losses {trainer.losses}")
+        raise SystemExit(f"{run}: losses {trainer.losses}")
     ckpt_dir = trainer.config.CHECKPOINT_FOLDER
     ckpts = sorted(glob.glob(os.path.join(ckpt_dir, "ckpt.*.pth")))
     last = load_checkpoint(ckpts[-1])
     if (len(ckpts) != 2 or not last["optim_state"]["state"]
             or (last["epoch"], last["step_id"]) != (
                 1, trainer.train_steps)):
-        raise SystemExit(f"{path}: checkpoints {ckpts}, epoch "
+        raise SystemExit(f"{run}: checkpoints {ckpts}, epoch "
                          f"{last.get('epoch')}, step {last.get('step_id')}")
     if not glob.glob(os.path.join(trainer.config.TENSORBOARD_DIR,
                                   "events.out.tfevents.*")):
-        raise SystemExit(f"{path}: no TensorBoard events")
+        raise SystemExit(f"{run}: no TensorBoard events")
     store_dir = trainer.lmdb_features_dir
     with TrajectoryStore(store_dir) as store:
         records = store.count()
@@ -1986,11 +2009,11 @@ def phase_train(card: str, tmp: str, path: str, extra=()) -> dict:
     want = {"depth_features"} | ({"occupancy_map", "semantic_map"}
                                  if mapped else {"rgb_features"})
     if not want <= set(obs) or {"depth", "rgb"} & set(obs):
-        raise SystemExit(f"{path}: a record holds {sorted(obs)}")
+        raise SystemExit(f"{run}: a record holds {sorted(obs)}")
     train_s = profiling._phase_times["train_step"]
     summary = {
         "card": card,
-        "path": path,
+        "path": run,
         "policy": type(trainer.policy).__name__,
         "lanes": trainer.config.NUM_ENVIRONMENTS,
         "records": records,
@@ -2015,7 +2038,7 @@ def phase_train(card: str, tmp: str, path: str, extra=()) -> dict:
         "launches": launches,
         "host_phases": host_phases(trainer, trainer.run_seconds),
     }
-    print(f"  [{card}] {path}: {records} episodes stored, "
+    print(f"  [{card}] {run}: {records} episodes stored, "
           f"{trainer.collection_env_steps} collection env steps in "
           f"{trainer.collection_seconds:.2f} s: "
           f"{summary['collection_env_steps_per_s']:.2f} env steps/s; "
@@ -2026,7 +2049,7 @@ def phase_train(card: str, tmp: str, path: str, extra=()) -> dict:
     print(f"  launches: {launches} for {steps} collection steps; peak "
           f"memory {summary['peak_memory_bytes']} bytes; records hold "
           f"{summary['record_keys']}")
-    print(f"  host phases [{card}] {path}, of {trainer.run_seconds:.4f} s: "
+    print(f"  host phases [{card}] {run}, of {trainer.run_seconds:.4f} s: "
           + ", ".join(f"{k} {v['s']:.4f} s ({100 * v['share']:.2f}%, "
                       f"{v['spans']} spans)"
                       for k, v in summary["host_phases"].items()))
@@ -2273,6 +2296,7 @@ def phase_train_trace(card: str, trainer_summary: dict, trainer) -> dict:
         "card": card,
         "train_steps": TRAIN_TRACE_STEPS,
         "trace_attempts": attempt,
+        "events_before_window": got["before_window"],
         "mean_rows": mean_rows,
         "device_ms_per_train_step": device_ms,
         "range_device_ms_per_train_step": per_step,
@@ -2536,6 +2560,395 @@ def phase_training(card: str, tmp: str, one_tour) -> dict:
     return out
 
 
+# -- phase 16: bfloat16 ---------------------------------------------------------
+# H100 SXM dense bfloat16 tensor-core peak, operations per second
+BF16_FLOPS = 989e12
+# the ranges TPU.compute_dtype bfloat16 runs in bfloat16
+BF16_RANGES = ("depth_encoder", "map_encoder", "rgb_encoder", "semantics")
+# convolution and matrix kernels, by name; those that compute in bfloat16
+# (cuDNN's and CUTLASS's carry the dtype in the name, cuBLAS's nvjet_tst
+# reads and writes bfloat16); those in a lower precision than float32
+CONV_KERNEL = re.compile(r"fprop|dgrad|wgrad|convolve|conv2d|implicit_gemm|"
+                         r"winograd|fft|gemm|gemv|nvjet|xmma|cutlass")
+BF16_KERNEL = re.compile(r"bf16|bfloat16|BFloat16|nvjet_tst")
+LOW_KERNEL = re.compile(r"bf16|bfloat16|BFloat16|half|f16|tf32|nvjet_[th]")
+
+
+def check_bf16_kernels(got: dict, path: str) -> dict:
+    """The convolution and matrix kernels of a bfloat16 run's trace, by
+    range: each one inside the bfloat16 ranges must compute in bfloat16
+    and none inside ``gru_attention`` below float32 (by kernel name).
+    Returns how many distinct kernels were checked in each range."""
+    by_range = defaultdict(set)
+    for name, where in got["by_kernel_us"].items():
+        if CONV_KERNEL.search(name):
+            for r in where:
+                by_range[r].add(name)
+    checked = {r: len(by_range[r]) for r in BF16_RANGES + ("gru_attention",)
+               if by_range[r]}
+    wrong = [(r, n[:120]) for r in BF16_RANGES for n in by_range[r]
+             if not BF16_KERNEL.search(n)]
+    wrong += [("gru_attention", n[:120]) for n in by_range["gru_attention"]
+              if LOW_KERNEL.search(n)]
+    print(f"  {path}: convolution and matrix kernels checked by range "
+          f"{checked}")
+    if wrong or not by_range["gru_attention"] or not any(
+            by_range[r] for r in BF16_RANGES):
+        raise SystemExit(f"{path}: kernels of the wrong precision: "
+                         f"{wrong[:6]}")
+    return checked
+
+
+def _bf16_vs_f32(fn) -> dict:
+    """For ``fn(side, dtype)`` -> a tensor, on each side ("cpu", "card"):
+    the largest |bfloat16 - float32| over the largest |float32|, both
+    runs on that side. The card's error must lie within [0.1, 2] times
+    the CPU's: bfloat16 rounding as on the CPU, not float32 or TF32."""
+    out = {}
+    for side in ("cpu", "card"):
+        with torch.no_grad():
+            want = fn(side, None).float().cpu()
+            got = fn(side, torch.bfloat16).float().cpu()
+        out[side] = float((got - want).abs().max() / want.abs().max())
+    out["ratio"] = out["card"] / out["cpu"]
+    return out
+
+
+def _enqueue_and_device_ms(fns: dict, reps: int = 10) -> dict:
+    """For each of ``fns`` (the same work in two dtypes), the median host
+    time to enqueue one call on an idle card and the median device time
+    of a call (the card spinning first, long enough to hide the enqueue,
+    as ``cuda_ms`` does; a span the host outlasted is taken again), the
+    dtypes' calls alternating."""
+    enqueue = {k: [] for k in fns}
+    device = {k: [] for k in fns}
+    order = list(fns)
+    for r in range(2 * reps):
+        for k in (order if r % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[k]()
+            enqueue[k].append((time.perf_counter() - t0) * 1e3)
+    retakes = 0
+    for r in range(reps):
+        for k in (order if r % 2 == 0 else order[::-1]):
+            spin = SPIN_MS + 3 * float(np.median(enqueue[k]))
+            while True:
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                _spin(spin)
+                a.record()
+                t0 = time.perf_counter()
+                fns[k]()
+                host = (time.perf_counter() - t0) * 1e3
+                b.record()
+                b.synchronize()
+                if host < spin:
+                    break
+                # the host stalled past the spin (its clock varies more
+                # than the card's): this span held host time, take it
+                # again
+                retakes += 1
+                if retakes > reps:
+                    raise SystemExit(f"enqueueing outlasted the card's "
+                                     f"{spin:.3f} ms spin {retakes} times")
+            device[k].append(a.elapsed_time(b))
+    return {k: {"enqueue_ms": float(np.median(enqueue[k][reps:])),
+                "device_ms": float(np.median(device[k]))} for k in fns}
+
+
+def phase_bf16_reference(card: str, device: str = "cuda") -> dict:
+    """Phase 16a: seeded full-width weights with random BatchNorm
+    statistics, the same inputs on the card and on the CPU, each part in
+    float32 and in bfloat16 on each side: the depth encoder (256^2), the
+    map encoder (64^2 maps of 13 classes), the RGB ResNet-50 (224^2),
+    RedNet (256^2) and one policy step of each family (hidden 512;
+    logits and RNN states). The card's bfloat16-vs-float32 error must be
+    0.1 to 2 times the CPU's; RedNet's card labels must equal its card
+    float32 labels wherever the float32 top-2 margin exceeds 4 times the
+    largest |bfloat16 - float32| score. Then, on the card, each encoder's
+    host enqueue time and device time in float32 and in bfloat16,
+    interleaved (``_enqueue_and_device_ms``). (``device`` "cpu" rehearses
+    the first part of the phase without a card.)"""
+    import copy
+
+    from ivlnce_tpu_torch.config import get_config
+    from ivlnce_tpu_torch.models import rednet as TR
+    from ivlnce_tpu_torch.models.nn import apply_cast
+
+    b = 2
+    rng = np.random.default_rng(SEED)
+    tokens = np.zeros((b, 200), np.int64)
+    tokens[:, :24] = rng.integers(1, 32, (b, 24))
+    inputs = {
+        "instruction": tokens,
+        "depth": rng.uniform(0, 1, (b, 256, 256, 1)).astype(np.float32),
+        "occupancy_map": rng.integers(0, 2, (b, 64, 64)).astype(np.uint8),
+        "semantic_map": rng.integers(0, 13, (b, 64, 64)).astype(np.uint8),
+        "rgb": rng.integers(0, 256, (b, 224, 224, 3)).astype(np.uint8),
+        "rgb256": rng.integers(0, 256, (b, 256, 256, 3)).astype(np.uint8),
+    }
+    rnn = rng.normal(0, 0.5, (b, 3, 512)).astype(np.float32)
+    devices = {"cpu": "cpu", "card": device}
+    on = {side: {k: torch.from_numpy(v).to(dev) for k, v in inputs.items()}
+          for side, dev in devices.items()}
+    map_policy = seeded_policy(get_config(CONFIG, list(BF16_OPTS)))
+    latent_policy = seeded_latent_policy(latent_config(
+        LATENT_VARIANTS["4_pool_end_cma"][0] + BF16_OPTS))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        rednet = TR.RedNet()
+        randomize_norm_statistics(rednet)
+        randomize_norm_statistics(map_policy)
+    models = {side: {n: copy.deepcopy(m).to(dev).eval() for n, m in (
+        ("map", map_policy), ("latent", latent_policy), ("rednet", rednet))}
+        for side, dev in devices.items()}
+
+    def step(family):
+        keys = (("instruction", "depth", "occupancy_map", "semantic_map")
+                if family == "map" else ("instruction", "depth", "rgb"))
+
+        def run(side, dtype):
+            # the same policy as float32 (None) or bfloat16
+            policy = models[side][family]
+            policy.net.compute_dtype = dtype
+            dev = devices[side]
+            layers = policy.num_recurrent_layers
+            m = torch.ones(b, 1, device=dev)
+            out = policy.act_iterative(
+                {k: on[side][k] for k in keys},
+                torch.from_numpy(rnn[:, :layers]).to(dev),
+                torch.zeros(b, 1, dtype=torch.int64, device=dev),
+                m, m, m, m)
+            return torch.cat([out.logits, out.rnn_states.flatten(1)], 1)
+        return run
+
+    def scores(side, dtype):
+        x = on[side]
+        return _scores(models[side]["rednet"], x["rgb256"],
+                       x["depth"][..., 0], dtype)
+
+    parts = {
+        "depth_encoder": lambda side, d: models[side]["map"].net
+        .depth_encoder(on[side]["depth"], d),
+        "map_encoder": lambda side, d: models[side]["map"].net.map_encoder(
+            on[side]["occupancy_map"], on[side]["semantic_map"], dtype=d),
+        "rgb_encoder": lambda side, d: models[side]["latent"].net
+        .rgb_encoder(on[side]["rgb"], d),
+        "rednet": scores,
+        "map_cma_step": step("map"),
+        "latent_cma_step": step("latent"),
+    }
+    out = {}
+    for name, fn in parts.items():
+        t0 = time.perf_counter()
+        out[name] = err = _bf16_vs_f32(fn)
+        print(f"  {name}: bfloat16 vs float32, largest |difference| over "
+              f"the largest |float32 value| [{card}]: CPU {err['cpu']:.4e}, "
+              f"card {err['card']:.4e} ({err['ratio']:.3f}x the CPU's; "
+              f"{time.perf_counter() - t0:.2f} s)")
+    with torch.no_grad():
+        f32 = scores("card", None).float()
+        bf16 = scores("card", torch.bfloat16).float()
+    tol = float((bf16 - f32).abs().max())
+    top = f32.topk(2, -1).values
+    sure = (top[..., 0] - top[..., 1]) > 4 * tol
+    flipped = int((sure & (f32.argmax(-1) != bf16.argmax(-1))).sum())
+    out["rednet_labels"] = {"sure_share": float(sure.float().mean()),
+                            "flipped": flipped,
+                            "largest_score_error": tol}
+    print(f"  RedNet labels, card bfloat16 vs card float32: "
+          f"{float(sure.float().mean()):.4f} of the pixels have a float32 "
+          f"top-2 margin over 4 x {tol:.4e}; {flipped} of them differ")
+    bad = {k: v["ratio"] for k, v in out.items()
+           if "ratio" in v and not 0.1 <= v["ratio"] <= 2.0}
+    if bad or flipped or not sure.any():
+        raise SystemExit(f"the card's bfloat16 disagrees with the CPU's: "
+                         f"{bad}, {flipped} sure labels flipped")
+    if device != "cuda":
+        return out
+    # the encoders alone: RedNet from inputs normalized beforehand (the
+    # resize's weights reach the card by a copy that waits on it), no
+    # policy step (its instruction encoder reads the lengths back)
+    card_rednet = models["card"]["rednet"]
+    normalized = {d: TR.normalize_inputs(on["card"]["rgb256"],
+                                         on["card"]["depth"][..., 0], d)
+                  for d in (None, torch.bfloat16)}
+    timed = {k: parts[k] for k in ("depth_encoder", "map_encoder",
+                                   "rgb_encoder")}
+    timed["rednet"] = lambda side, d: (
+        card_rednet(*normalized[d]) if d is None
+        else apply_cast(card_rednet, d, *normalized[d]))
+    out["host_and_device_ms"] = {}
+    with torch.inference_mode():
+        for name, fn in timed.items():
+            got = _enqueue_and_device_ms({
+                "f32": lambda fn=fn: fn("card", None),
+                "bf16": lambda fn=fn: fn("card", torch.bfloat16)})
+            out["host_and_device_ms"][name] = got
+            print(f"  {name}, B={b} [{card}]: enqueue float32 "
+                  f"{got['f32']['enqueue_ms']:.4f} ms, bfloat16 "
+                  f"{got['bf16']['enqueue_ms']:.4f} ms; device float32 "
+                  f"{got['f32']['device_ms']:.4f} ms, bfloat16 "
+                  f"{got['bf16']['device_ms']:.4f} ms")
+    return out
+
+
+def _scores(model, rgb, depth, dtype):
+    """RedNet's scores of ``predict_semantics``' inputs, in ``dtype``."""
+    from ivlnce_tpu_torch.models import rednet as TR
+    from ivlnce_tpu_torch.models.nn import apply_cast
+
+    inputs = TR.normalize_inputs(rgb, depth, dtype)
+    return model(*inputs) if dtype is None else apply_cast(model, dtype,
+                                                           *inputs)
+
+
+def phase_bf16_training(card: str, tmp: str) -> dict:
+    """Phase 16e: ``map_cma_train_tf.yaml`` under bfloat16 with phase
+    14a's cuts through ``phase_train`` (K1 and K2 once per collection
+    step): the stored depth features are float32 (collection encodes the
+    frozen encoders in float32, as the JAX package's ``encode_feats``
+    does), so is every tensor of the checkpoint and the optimizer state,
+    and a train step's map encoder runs and differentiates in float32.
+    Then the LatentCMA and tour-BPTT trainers under bfloat16, cut to 6
+    and 20 collected episodes."""
+    import random
+
+    from ivlnce_tpu_torch.trainers.base_trainer import load_checkpoint
+    from ivlnce_tpu_torch.trainers.dagger_trainer import IWTrajectoryDataset
+    from ivlnce_tpu_torch.trainers.trajectory_store import TrajectoryStore
+
+    out = {}
+    summary, trainer = phase_train(card, tmp, "train_map_cma", BF16_OPTS,
+                                   run="train_map_cma_bf16")
+    net = trainer.policy.net
+    if net.compute_dtype != torch.bfloat16:
+        raise SystemExit("train_map_cma_bf16: the policy is not bfloat16")
+    with TrajectoryStore(trainer.lmdb_features_dir) as store:
+        first = int(isinstance(store.get(0), dict))  # a tours index
+        stored = store.get(first)[0]["depth_features"].dtype
+    ckpt = load_checkpoint(summary["checkpoint"])
+    tensors = [v for v in ckpt["state_dict"].values()] + [
+        v for st in ckpt["optim_state"]["state"].values()
+        for v in st.values() if v.dim()]
+    ckpt_dtypes = {str(v.dtype) for v in tensors if v.is_floating_point()}
+    seen = {"map_encoder": set(), "collection_depth_encoder": set()}
+    hooks = [m.register_forward_pre_hook(
+        lambda m, inp, k=k: seen[k].add((inp[0].dtype, m.weight.dtype)))
+        for k, enc in (("map_encoder", net.map_encoder),
+                       ("collection_depth_encoder", net.depth_encoder))
+        for m in enc.modules() if isinstance(m, torch.nn.Conv2d)]
+    try:
+        random.seed(SEED)
+        obs, prev, masks, corrected, weights = next(IWTrajectoryDataset(
+            trainer.lmdb_features_dir, trainer.config.IL.use_iw,
+            trainer.config.IL.inflection_weight_coef, 5).batches())
+        trainer._update_agent(obs, prev, masks, corrected, weights)
+        with torch.no_grad():
+            trainer._encode_feats({"depth": torch.rand(2, 256, 256, 1,
+                                                        device="cuda")})
+    finally:
+        for hook in hooks:
+            hook.remove()
+    grads = {str(p.grad.dtype) for p in net.map_encoder.parameters()
+             if p.grad is not None}
+    f32 = {(torch.float32, torch.float32)}
+    summary.update(stored_depth_features=str(stored),
+                   checkpoint_dtypes=sorted(ckpt_dtypes),
+                   map_encoder_train_dtypes=sorted(map(str, seen[
+                       "map_encoder"])), map_encoder_grad_dtypes=sorted(grads))
+    print(f"  stored depth features {stored}; checkpoint tensors "
+          f"{sorted(ckpt_dtypes)}; a train step's map encoder convolutions "
+          f"saw {seen['map_encoder']}, its gradients {sorted(grads)}; "
+          f"collection's depth encoder {seen['collection_depth_encoder']}")
+    if (stored != np.float32 or ckpt_dtypes != {"torch.float32"}
+            or seen["map_encoder"] != f32 or grads != {"torch.float32"}
+            or seen["collection_depth_encoder"] != f32):
+        raise SystemExit("train_map_cma_bf16: float32 parts of the "
+                         "training ran or were stored in another dtype")
+    out["train_map_cma_bf16"] = summary
+    # the tour sampler needs at least as many tours (6 of 4 episodes in
+    # the fake train split) as lanes per batch (5)
+    for path, episodes in (("train_latent", "6"), ("train_tour", "20")):
+        out[f"{path}_bf16"] = phase_train(
+            card, tmp, path, BF16_OPTS + ("IL.DAGGER.update_size", episodes),
+            run=f"{path}_bf16")[0]
+    return out
+
+
+def phase_bf16(card: str, tmp: str, ckpts: dict, one_tour, e2e: dict,
+               traces: dict) -> dict:
+    """Phase 16: TPU.compute_dtype bfloat16. (a) the parts card vs CPU;
+    (b) the iterative eval (one tour per lane) and its trace, and the
+    known-map eval; (c) the predicted-semantics eval and its trace against
+    RedNet's bfloat16 bound; (d) ``4_pool_end_cma`` and its trace against
+    the RGB and depth ResNet-50s' bfloat16 bounds; the episodic evals
+    (MapCMA, RxR) cut to a few episodes; (e) training. The bfloat16 runs'
+    results go into ``e2e`` and ``traces`` beside the float32 ones."""
+    t0 = time.perf_counter()
+    out = {}
+    print("  16a: full-width parts, card vs CPU, bfloat16 vs float32")
+    out["reference"] = phase_bf16_reference(card)
+    print("  16b-d: evals through run_exp, one tour per lane; traced")
+    for path, ckpt, traced in (
+            ("iterative", "map", True), ("known", "map", False),
+            ("predicted", "map", True),
+            ("latent_4_pool_end_cma", "latent", True)):
+        name = f"{path}_bf16"
+        e2e[name] = phase_end_to_end(card, tmp, ckpts[ckpt], name, one_tour)
+        if traced:
+            traces[name] = phase_trace(
+                card, tmp, ckpts[ckpt], e2e[name]["wall_ms_per_step"], name,
+                one_tour)
+    lanes = e2e["predicted_bf16"]["lanes"]
+    rednet = rednet_flops(256)
+    resnets = latent_encoder_flops()
+    bounds = {
+        "predicted_bf16": {"semantics": lanes * rednet},
+        "latent_4_pool_end_cma_bf16": {
+            "rgb_encoder": lanes * resnets["rgb"],
+            "depth_encoder": lanes * resnets["depth"]},
+    }
+    out["bounds_ms"] = {}
+    for name, by_range in bounds.items():
+        got = traces[name]["range_device_ms_per_step"]
+        for r, flops in by_range.items():
+            bound = {"bf16": flops / BF16_FLOPS * 1e3,
+                     "f32": flops / FP32_FLOPS * 1e3}
+            out["bounds_ms"][f"{name}.{r}"] = {**bound, "ms": got.get(r)}
+            if not got.get(r):
+                raise SystemExit(f"{name}: no device time in {r}")
+            print(f"  {name} {r}: {got[r]:.4f} ms per policy step [{card}] "
+                  f"against its bound {bound['bf16']:.4f} ms at 989 TFLOP/s "
+                  f"bfloat16 ({bound['f32']:.4f} ms at 67 TFLOP/s float32; "
+                  f"{flops} operations per policy step)")
+    out["ranges_f32_bf16"] = {}
+    for f32, bf16 in (("iterative", "iterative_bf16"),
+                      ("predicted", "predicted_bf16"),
+                      ("latent", "latent_4_pool_end_cma_bf16")):
+        a = traces[f32]["range_device_ms_per_step"]
+        b = traces[bf16]["range_device_ms_per_step"]
+        both = {r: (a.get(r, 0.0), b.get(r, 0.0)) for r in sorted(set(a) | set(b))}
+        out["ranges_f32_bf16"][bf16] = both
+        print(f"  device ms per policy step by range, float32 / bfloat16 "
+              f"[{card}] {bf16}: " + ", ".join(
+                  f"{r} {x:.4f} / {y:.4f}" for r, (x, y) in both.items())
+              + f"; all {traces[f32]['device_ms_per_step']:.4f} / "
+              f"{traces[bf16]['device_ms_per_step']:.4f}")
+    print("  16b: the episodic evals in bfloat16, 6 (MapCMA) and 4 (RxR) "
+          "episodes")
+    e2e["map_episodic_bf16"] = phase_end_to_end(
+        card, tmp, ckpts["map"], "map_episodic_bf16",
+        ("EVAL.EPISODE_COUNT", "6"))
+    e2e["rxr_bf16"] = phase_end_to_end(card, tmp, ckpts["rxr"], "rxr_bf16",
+                                       ("EVAL.EPISODE_COUNT", "4"))
+    print("  16e: training in bfloat16")
+    out["training"] = phase_bf16_training(card, tmp)
+    print(f"  phase 16 took {time.perf_counter() - t0:.2f} s")
+    return out
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2572,7 +2985,7 @@ def main() -> int:
     worst["known_load"] = phase_known_vs_plain()
 
     print("phase 4: timing (B=64 and B=3, noise and FakeSim walks; K3 "
-          "against its first design at B=64, L=3 and L=1)")
+          "at B=64, L=3 and L=1)")
     walks_timed = phase_timing(card)
     timing = {k: walks_timed["fakesim_b64"][k]
               for k in ("accumulate", "rasterize")}
@@ -2601,11 +3014,12 @@ def main() -> int:
         traces["iterative"] = phase_trace(
             card, tmp, ckpt, e2e["iterative"]["wall_ms_per_step"],
             "iterative", one_tour)
-        print("phase 8: known-map eval through run_exp")
-        e2e["known"] = phase_end_to_end(card, tmp, ckpt, "known")
-        print("phase 9: predicted-semantics eval through run_exp, then "
-              "traced")
-        e2e["predicted"] = phase_end_to_end(card, tmp, ckpt, "predicted")
+        print("phase 8: known-map eval through run_exp, one tour per lane")
+        e2e["known"] = phase_end_to_end(card, tmp, ckpt, "known", one_tour)
+        print("phase 9: predicted-semantics eval through run_exp, one tour "
+              "per lane, then traced")
+        e2e["predicted"] = phase_end_to_end(card, tmp, ckpt, "predicted",
+                                            one_tour)
         traces["predicted"] = phase_trace(
             card, tmp, ckpt, e2e["predicted"]["wall_ms_per_step"],
             "predicted", one_tour)
@@ -2622,18 +3036,16 @@ def main() -> int:
               f"{traces['predicted']['semantics_bound_ms']:.4f} ms at 67 "
               f"TFLOP/s against {semantics_ms:.4f} ms in the semantics range")
 
-        print("phase 10: the latent baselines' tour evals through run_exp "
-              "(one tour per lane but for 4_pool_end_cma, which phase 11 "
-              "traces)")
+        print("phase 10: the latent baselines' tour evals through run_exp, "
+              "one tour per lane")
         for variant, (flags, layers) in LATENT_VARIANTS.items():
             path = f"latent_{variant}"
             config = latent_config(flags)
             latent_ckpt = os.path.join(tmp, f"ckpt_{path}.0.pth")
             save_checkpoint(seeded_latent_policy(config), config,
                             latent_ckpt)
-            e2e[path] = phase_end_to_end(
-                card, tmp, latent_ckpt, path,
-                () if variant == "4_pool_end_cma" else one_tour)
+            e2e[path] = phase_end_to_end(card, tmp, latent_ckpt, path,
+                                         one_tour)
             if e2e[path]["recurrent_layers"] != layers:
                 raise SystemExit(f"{path} loaded a policy with "
                                  f"{e2e[path]['recurrent_layers']} "
@@ -2644,7 +3056,7 @@ def main() -> int:
             card, tmp, latent_ckpt, e2e[path]["wall_ms_per_step"], path,
             one_tour)
         ranges = trace["range_device_ms_per_step"]
-        if not ranges.get("rgb_encoder") or not ranges.get("encoders"):
+        if not ranges.get("rgb_encoder") or not ranges.get("depth_encoder"):
             raise SystemExit("no device time in the encoder ranges")
         flops = latent_encoder_flops()
         lanes = e2e[path]["lanes"]
@@ -2657,8 +3069,8 @@ def main() -> int:
               f"{trace['rgb_bound_ms']:.4f} ms (RGB) and "
               f"{trace['depth_bound_ms']:.4f} ms (depth) at 67 TFLOP/s "
               f"against {ranges['rgb_encoder']:.4f} ms in the rgb_encoder "
-              f"range and {ranges['encoders']:.4f} ms in the rest of "
-              f"encoders")
+              f"range and {ranges['depth_encoder']:.4f} ms in the "
+              f"depth_encoder range")
 
         print("phase 12: episodic evals through run_exp")
         e2e["map_episodic"] = phase_end_to_end(card, tmp, ckpt,
@@ -2684,6 +3096,13 @@ def main() -> int:
         print("phase 15: tour-BPTT training through run_exp, two carried "
               "batches card vs CPU")
         training.update(phase_tour_training(card, tmp))
+
+        print("phase 16: TPU.compute_dtype bfloat16: the parts card vs CPU, "
+              "the evals traced, training")
+        bf16 = phase_bf16(card, tmp, {"map": ckpt, "latent": latent_ckpt,
+                                      "rxr": rxr_ckpt}, one_tour, e2e,
+                          traces)
+        training.update(bf16.pop("training"))
 
     # each kernel's launches come from the path that runs it
     kernel_path = {"accumulate": "iterative", "rasterize": "iterative",
@@ -2712,8 +3131,9 @@ def main() -> int:
             "launches_by_path": {
                 **{p: v["launches"][k] for p, v in e2e.items()},
                 **{p: training[p]["launches"][k]
-                   for p in ("train_map_cma", "train_latent",
-                             "train_tour")}},
+                   for p in ("train_map_cma", "train_latent", "train_tour",
+                             "train_map_cma_bf16", "train_latent_bf16",
+                             "train_tour_bf16")}},
             "pass_ms": timing[k]["pass_ms"],
         }
         for k in ("accumulate", "rasterize", "known_load")
@@ -2726,16 +3146,15 @@ def main() -> int:
                           for w, v in walks_timed.items()}
     entry = next(e for e in line["kernels"] if e["name"] == "known_load")
     entry["size"] = "B=64, 2^18 points per cloud, G=1024, the whole load"
-    entry["v1_ms"] = timing["known_load"]["old_ms"]
     entry["touched_bound_ms"] = timing["known_load"]["touched_bound_ms"]
     entry["sizes"] = {
-        size: {f: v[f] for f in ("ms", "device_ms", "old_ms", "old_wall_ms",
-                                 "plain_ms", "bound_ms", "touched_bound_ms",
-                                 "pass_ms", "old_pass_ms", "peak_bytes")}
+        size: {f: v[f] for f in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                 "touched_bound_ms", "pass_ms",
+                                 "peak_bytes")}
         for size, v in known_timed.items()}
     print(json.dumps({"end_to_end": e2e, "trace": traces,
                       "training": training,
-                      "reference": reference,
+                      "reference": reference, "bf16": bf16,
                       "kernel_walks": walks_timed,
                       "known_load_timing": known_timed,
                       "seconds": time.perf_counter() - t_start}))

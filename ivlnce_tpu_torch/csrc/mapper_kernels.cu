@@ -77,10 +77,11 @@
 // row (12 bytes per cell: 805 MB for 64 rows of 1024^2) and the cloud
 // (13 bytes per point). The points' cells are random in a grid far larger
 // than L2, so a design that settles them in device memory pays a
-// scattered 32-byte sector per point and per pass: the first design
-// (mapper_known_load_v1, kept for comparison) did one global atomicMax
-// per point into a grid cleared beforehand by the caller, then reread the
-// cloud and the grid to commit the winners. The tiled design bins the
+// scattered 32-byte sector per point and per pass: the first design (one
+// global atomicMax per point into a grid cleared beforehand by the
+// caller, then a reread of the cloud and the grid to commit the winners;
+// deleted once the tiled design was measured against it) took 2.4x as
+// long at B=64 x 2^18 points. The tiled design bins the
 // points by 64 x 64 tile of the row and settles each tile in shared
 // memory, in two launches:
 //   1. scatter (known_bin_scatter): one block per chunk of 2048 points,
@@ -592,71 +593,6 @@ __device__ __forceinline__ KnownPoint known_point_of(
   return out;
 }
 
-// Point i of cloud l.
-__device__ __forceinline__ KnownPoint known_point(
-    const float* __restrict__ xyz, const uint8_t* __restrict__ sem,
-    const int* __restrict__ rows, const int* __restrict__ origin, int l,
-    int i, int N, int G, float half, float inv_half) {
-  return known_point_of(raw_point(xyz, sem, (size_t)l * N + i), rows,
-                        origin, l, G, half, inv_half);
-}
-
-// ---------------------------------------------------------------------------
-// K3, first design (v1): one global atomic per point into rows the caller
-// has cleared, then a second pass over the cloud commits the winners.
-// Kept beside the tiled design for comparison (mapper_known_load_v1).
-// ---------------------------------------------------------------------------
-
-// Pass 1: per cell, the 64-bit max of key << 32 | (0xFFFFFFFE - i) over
-// the cloud's first counts[l] points, grid-strided; points off the grid
-// are summed per warp into dropped.
-__global__ void known_load_max(
-    long long* __restrict__ word, int* __restrict__ dropped,
-    const int* __restrict__ rows, const int* __restrict__ origin,
-    const float* __restrict__ xyz, const uint8_t* __restrict__ sem,
-    const int* __restrict__ counts, int N, int G, float half,
-    float inv_half) {
-  const int l = blockIdx.y;
-  const int count = min(counts[l], N);
-  int lost = 0;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < count;
-       i += gridDim.x * blockDim.x) {
-    const KnownPoint kp =
-        known_point(xyz, sem, rows, origin, l, i, N, G, half, inv_half);
-    if (kp.inside) {
-      atomicMax(word + kp.cell, make_word(kp.key, 0xFFFFFFFEu - (unsigned)i));
-    } else {
-      ++lost;
-    }
-  }
-  lost = __reduce_add_sync(kFullMask, lost);
-  if ((threadIdx.x & 31) == 0 && lost != 0) {
-    atomicAdd(dropped + rows[l], lost);
-  }
-}
-
-// Pass 2: the point whose word survived writes its payload and becomes
-// the cell's stored point.
-__global__ void known_load_commit(
-    long long* __restrict__ word, int* __restrict__ aux,
-    const int* __restrict__ rows, const int* __restrict__ origin,
-    const float* __restrict__ xyz, const uint8_t* __restrict__ sem,
-    const int* __restrict__ counts, int N, int G, float half,
-    float inv_half) {
-  const int l = blockIdx.y;
-  const int count = min(counts[l], N);
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < count;
-       i += gridDim.x * blockDim.x) {
-    const KnownPoint kp =
-        known_point(xyz, sem, rows, origin, l, i, N, G, half, inv_half);
-    if (kp.inside &&
-        word[kp.cell] == make_word(kp.key, 0xFFFFFFFEu - (unsigned)i)) {
-      aux[kp.cell] = kp.aux;
-      word[kp.cell] = make_word(kp.key, kIncumbentLow);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // K3, tiled design: each chunk of the cloud sorted by tile into its own
 // bins, then one block per tile settles it in shared memory and writes it
@@ -1075,26 +1011,6 @@ extern "C" int mapper_known_load(
   known_tile_load<<<dim3(k.tiles, L), kKnownTileThreads, tile_smem,
                     stream>>>(word, aux, bins, run_start, run_length, rows,
                               G, k.tiles_side, k.chunks, aligned);
-  return (int)cudaGetLastError();
-}
-
-// The first design, on rows the caller has cleared.
-extern "C" int mapper_known_load_v1(
-    long long* word, int* aux, int* dropped, const int* rows,
-    const int* origin, const float* xyz, const uint8_t* sem,
-    const int* counts, int L, int N, int G, float half, float inv_half,
-    cudaStream_t stream) {
-  if (L == 0) return 0;
-  // up to 128 blocks per cloud, each thread striding over its points
-  const int threads = 256;
-  const dim3 grid(std::max(1, std::min((N + threads - 1) / threads, 128)),
-                  L);
-  known_load_max<<<grid, threads, 0, stream>>>(
-      word, dropped, rows, origin, xyz, sem, counts, N, G, half, inv_half);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  known_load_commit<<<grid, threads, 0, stream>>>(
-      word, aux, rows, origin, xyz, sem, counts, N, G, half, inv_half);
   return (int)cudaGetLastError();
 }
 

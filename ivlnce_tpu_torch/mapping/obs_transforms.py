@@ -31,6 +31,7 @@ from ivlnce_tpu_torch.mapping.mapper import (
     load_lanes,
     mapper_step,
 )
+from ivlnce_tpu_torch.models.nn import compute_dtype as nn_compute_dtype
 from ivlnce_tpu_torch.ops.geometry import MapDims
 from ivlnce_tpu_torch.utils import logging_util
 from ivlnce_tpu_torch.utils.registry import registry
@@ -56,6 +57,7 @@ class Mapper:
         maps_location: Optional[str] = None,
         known_map_max_points: int = 2 ** 18,
         scene_centers: Optional[Dict[str, tuple]] = None,
+        compute_dtype: str = "float32",
     ):
         self.params = MapperParams(
             camera=camera_parameters,
@@ -69,6 +71,8 @@ class Mapper:
         self.device = device
         self.state: Optional[MapperState] = None
         self.rednet = rednet
+        # RedNet's dtype (TPU.compute_dtype; JAX obs_transforms.py:67-68)
+        self.compute_dtype = nn_compute_dtype(compute_dtype)
         if maps_location is not None:
             self.maps_location = maps_location
         self.known_map_max_points = known_map_max_points
@@ -258,6 +262,7 @@ class Mapper:
         params = self.params
         predicted = self.predicted_semantics
         known = self.known_maps
+        dtype = self.compute_dtype
 
         def device_step(state, obs, reset_masks, rednet=None):
             depth = obs["depth"]
@@ -274,7 +279,7 @@ class Mapper:
 
                     with record_function("semantics"):
                         semantics = predict_semantics(rednet, obs["rgb"],
-                                                      depth)
+                                                      depth, dtype)
                 else:
                     semantics = obs["semantic12"]
                     if semantics.dim() == 4:
@@ -309,7 +314,8 @@ class Mapper:
             mapper_cfg.width_meters,
             mapper_cfg.resolution_meters,
         )
-        kwargs = {"known_map_max_points": config.TPU.known_map_max_points}
+        kwargs = {"known_map_max_points": config.TPU.known_map_max_points,
+                  "compute_dtype": config.TPU.compute_dtype}
         if cls.predicted_semantics and not cls.known_maps:
             kwargs["rednet"] = _load_rednet(config, device)
         grid_cells = config.TPU.world_grid_cells
@@ -343,15 +349,11 @@ class Mapper:
 def _load_rednet(config, device: torch.device):
     """RedNet with the reference's weights from ``REDNET_CHECKPOINT`` or,
     when that file is missing, seeded random weights, as the JAX package
-    falls back to (obs_transforms.py:446-470). float32 only."""
+    falls back to (obs_transforms.py:446-470). Its weights stay float32;
+    the device step casts them for ``TPU.compute_dtype``."""
     from ivlnce_tpu_torch.models.checkpoint_io import load_rednet, merge_params
     from ivlnce_tpu_torch.models.rednet import RedNet
 
-    if config.TPU.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"RedNet in {config.TPU.compute_dtype} waits for a later slice "
-            "of the port"
-        )
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         model = RedNet()

@@ -7,7 +7,13 @@ RNN state is (B, L, H): one slot per GRU, and for LatentCMA's
 mask zeroes the previous-action embedding index, the episode mask
 restarts both GRUs, the tour mask clears the tour memory. Each net runs
 in two stages as in the JAX package: ``encode`` (encoders and K/V
-projections) and ``step`` (two GRU cells and three attentions)."""
+projections) and ``step`` (two GRU cells and three attentions).
+
+``TPU.compute_dtype`` bfloat16 (``model_config.compute_dtype``, set by the
+policies) runs the depth, RGB and map encoders in bfloat16 on cast
+copies of their weights (JAX cma.py:164-183,364-379); the map encoder
+stays float32 in a training forward, and everything after the encoders
+runs in float32."""
 
 from __future__ import annotations
 
@@ -20,7 +26,7 @@ from torch.profiler import record_function
 
 from ivlnce_tpu_torch.models import instruction_encoder as IE
 from ivlnce_tpu_torch.models.map_encoder import SemanticMapEncoder
-from ivlnce_tpu_torch.models.nn import attend
+from ivlnce_tpu_torch.models.nn import attend, compute_dtype
 from ivlnce_tpu_torch.models.resnet import (
     TorchVisionResNetSpatial,
     VlnResnetDepthEncoder,
@@ -53,6 +59,8 @@ class MapCMANet(nn.Module):
         half = hidden // 2
         self.hidden_size = hidden
         self.half = half
+        self.compute_dtype = compute_dtype(
+            getattr(cfg, "compute_dtype", "float32"))
         self.instruction_encoder = IE.InstructionEncoder(
             cfg.INSTRUCTION_ENCODER
         )
@@ -103,12 +111,16 @@ class MapCMANet(nn.Module):
         if "depth_features" in observations:
             dep = observations["depth_features"]
         else:
-            dep = self.depth_encoder(observations["depth"])
+            with record_function("depth_encoder"):
+                dep = self.depth_encoder(observations["depth"],
+                                         self.compute_dtype)
         dep = dep.flatten(2)
-        map_feat = self.map_encoder(
-            observations["occupancy_map"], observations["semantic_map"],
-            training=training and cfg.SEMANTIC_MAP_ENCODER.trainable,
-        ).flatten(2)
+        with record_function("map_encoder"):
+            map_feat = self.map_encoder(
+                observations["occupancy_map"], observations["semantic_map"],
+                training=training and cfg.SEMANTIC_MAP_ENCODER.trainable,
+                dtype=self.compute_dtype,
+            ).flatten(2)
         idx = ((prev_actions.reshape(-1).float() + 1)
                * action_masks.reshape(-1).float()).long()
         prev_a = self.prev_action_embedding(idx)
@@ -171,6 +183,8 @@ class LatentCMANet(nn.Module):
         self.hidden_size = hidden
         self.half = half
         self.num_recurrent_layers = 2 + int(cfg.tour_memory_variant)
+        self.compute_dtype = compute_dtype(
+            getattr(cfg, "compute_dtype", "float32"))
         self.instruction_encoder = IE.InstructionEncoder(
             cfg.INSTRUCTION_ENCODER
         )
@@ -224,13 +238,16 @@ class LatentCMANet(nn.Module):
         if "depth_features" in observations:
             dep = observations["depth_features"]
         else:
-            dep = self.depth_encoder(observations["depth"])
+            with record_function("depth_encoder"):
+                dep = self.depth_encoder(observations["depth"],
+                                         self.compute_dtype)
         dep = dep.flatten(2)
         if "rgb_features" in observations:
             rgb = observations["rgb_features"]
         else:
             with record_function("rgb_encoder"):
-                rgb = self.rgb_encoder(observations["rgb"])
+                rgb = self.rgb_encoder(observations["rgb"],
+                                       self.compute_dtype)
         rgb = rgb.flatten(2)
         idx = ((prev_actions.reshape(-1).float() + 1)
                * action_masks.reshape(-1).float()).long()

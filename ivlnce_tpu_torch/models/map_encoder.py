@@ -12,11 +12,13 @@ unbiased variance; JAX map_encoder.py:75-94, nn.py:220-233)."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ivlnce_tpu_torch.models.nn import one_hot
+from ivlnce_tpu_torch.models.nn import apply_cast, one_hot
 
 BN_MOMENTUM = 0.1
 
@@ -58,22 +60,30 @@ class SemanticMapEncoder(nn.Module):
         self.cnn = nn.Sequential(*blocks)
         self.output_shape = (widths[-1], map_hw // 16, map_hw // 16)
 
-    def _inputs(self, occupancy: torch.Tensor,
-                semantic: torch.Tensor) -> torch.Tensor:
-        """The 14 input channels, in the encoder's dtype."""
-        dtype = self.cnn[0].conv[0].weight.dtype
+    def _inputs(self, occupancy: torch.Tensor, semantic: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+        """The 14 input channels in ``dtype``."""
         occ = occupancy.to(dtype)[:, None]
         sem = one_hot(semantic, self.num_semantic_classes).to(dtype)
         return torch.cat([occ, sem.permute(0, 3, 1, 2)], dim=1)
 
     def forward(self, occupancy: torch.Tensor, semantic: torch.Tensor,
-                training: bool = False) -> torch.Tensor:
+                training: bool = False,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """(B, R, C) uint8 maps -> (B, C_out, R/16, C/16); ``training``
-        normalises with batch statistics."""
-        x = self._inputs(occupancy, semantic)
-        for block in self.cnn:
-            x = block(x, training)
-        return x
+        normalises with batch statistics. ``dtype`` (``TPU.compute_dtype``)
+        runs the inputs and the stack, its weights and running statistics
+        cast (``apply_cast``), in that dtype, and returns float32; a
+        training forward ignores it and stays in the weights' dtype (JAX
+        map_encoder.py:44-72, cma.py:173-183)."""
+        if dtype is None or training:
+            x = self._inputs(occupancy, semantic,
+                             self.cnn[0].conv[0].weight.dtype)
+            for block in self.cnn:
+                x = block(x, training)
+            return x
+        return apply_cast(self.cnn, dtype,
+                          self._inputs(occupancy, semantic, dtype)).float()
 
     @torch.no_grad()
     def update_running_stats(self, occupancy: torch.Tensor,
@@ -82,7 +92,8 @@ class SemanticMapEncoder(nn.Module):
         one pass with the current weights: block i's batch statistics
         normalise its output, which feeds block i + 1 (JAX
         ``map_encoder_new_stats``)."""
-        x = self._inputs(occupancy, semantic)
+        x = self._inputs(occupancy, semantic,
+                         self.cnn[0].conv[0].weight.dtype)
         for block in self.cnn:
             bn = block.conv[1]
             pre = block.conv[0](x)

@@ -57,6 +57,8 @@ class CMAPolicy(nn.Module):
         # both CMA nets force per-token instruction features
         # (map_cma_policy.py:116-118, latent_cma_policy.py:209-211)
         model_config.INSTRUCTION_ENCODER.final_state_only = False
+        # the encoders' dtype (JAX policy.py:62-67)
+        model_config.compute_dtype = config.TPU.compute_dtype
         self.model_config = model_config.freeze()
         # rows per recomputed encoder chunk of the training forward
         # (TPU.train_encode_chunk; 0 = one pass over all T*N rows)
@@ -68,14 +70,6 @@ class CMAPolicy(nn.Module):
 
     @classmethod
     def from_config(cls, config, observation_info):
-        # the JAX package casts the encoders to TPU.compute_dtype
-        # (policy.py:65); the port's encoders run in float32 only
-        if config.TPU.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"TPU.compute_dtype {config.TPU.compute_dtype} waits for "
-                "the slice of the port that brings bfloat16 encoders; "
-                "set it to float32"
-            )
         return cls(config, observation_info)
 
     @property

@@ -15,12 +15,13 @@ Public functions keep the JAX package's NHWC layout."""
 from __future__ import annotations
 
 import functools
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from ivlnce_tpu_torch.models.nn import apply_cast
 from ivlnce_tpu_torch.models.resnet import BNBottleneck
 
 RGB_MEAN = (0.485, 0.456, 0.406)
@@ -176,39 +177,50 @@ def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
 def bilinear_resize(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
     """NHWC (B, H, W, C) -> (B, hw[0], hw[1], C) with the semantics of the
     JAX package's ``bilinear_resize`` (``jax.image.resize``, "linear"):
-    half-pixel centres, antialiased when downsampling. An axis whose size
-    does not change is left as it is."""
+    half-pixel centres, antialiased when downsampling, in ``x``'s dtype
+    (the weights cast to it). An axis whose size does not change is left
+    as it is."""
     for axis, n_out in ((1, hw[0]), (2, hw[1])):
         n_in = x.shape[axis]
         if n_in == n_out:
             continue
-        w = torch.from_numpy(_resize_weights(n_in, n_out)).to(x.device)
+        w = torch.from_numpy(_resize_weights(n_in, n_out)).to(x.device,
+                                                               x.dtype)
         x = torch.movedim(
             torch.tensordot(x, w, dims=([axis], [0])), -1, axis
         )
     return x
 
 
-def normalize_inputs(rgb_uint8: torch.Tensor, depth_normalized: torch.Tensor
+def normalize_inputs(rgb_uint8: torch.Tensor, depth_normalized: torch.Tensor,
+                     dtype: Optional[torch.dtype] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """RedNet's inputs (reference mapper.py:715-736): RGB /255, resized to
     the depth size, ImageNet-normalized; depth (B, H, W) or (B, H, W, 1)
-    normalized with mean .213 and std .285. Both NHWC."""
+    normalized with mean .213 and std .285. Both NHWC, in ``dtype``
+    (float32 when None) throughout, as JAX rednet.py:249-258 computes
+    them."""
+    dtype = dtype or torch.float32
     hw = depth_normalized.shape[1:3]
-    rgb = rgb_uint8.float() / 255.0
+    rgb = rgb_uint8.to(dtype) / 255.0
     rgb = bilinear_resize(rgb, hw)
-    mean = torch.tensor(RGB_MEAN, device=rgb.device)
-    std = torch.tensor(RGB_STD, device=rgb.device)
+    mean = torch.tensor(RGB_MEAN, device=rgb.device, dtype=dtype)
+    std = torch.tensor(RGB_STD, device=rgb.device, dtype=dtype)
     rgb = (rgb - mean) / std
     if depth_normalized.dim() == 3:
         depth_normalized = depth_normalized[..., None]
-    depth = (depth_normalized.float() - DEPTH_MEAN) / DEPTH_STD
+    depth = (depth_normalized.to(dtype) - DEPTH_MEAN) / DEPTH_STD
     return rgb, depth
 
 
 def predict_semantics(model: RedNet, rgb_uint8: torch.Tensor,
-                      depth_normalized: torch.Tensor) -> torch.Tensor:
+                      depth_normalized: torch.Tensor,
+                      dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """RedNet labels at the depth resolution (reference mapper.py:782-800):
-    the argmax of the scores of ``normalize_inputs``, (B, H, W) uint8."""
-    scores = model(*normalize_inputs(rgb_uint8, depth_normalized))
+    the argmax of the scores of ``normalize_inputs``, (B, H, W) uint8.
+    ``dtype`` (``TPU.compute_dtype``) runs the inputs and the model, on a
+    cast copy of its weights, in that dtype (JAX rednet.py:236-260)."""
+    inputs = normalize_inputs(rgb_uint8, depth_normalized, dtype)
+    scores = (model(*inputs) if dtype is None
+              else apply_cast(model, dtype, *inputs))
     return torch.argmax(scores, dim=-1).to(torch.uint8)

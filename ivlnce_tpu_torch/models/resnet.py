@@ -6,10 +6,12 @@ checkpoints."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
+
+from ivlnce_tpu_torch.models.nn import apply_cast
 
 RESNET50_LAYERS = (3, 4, 6, 3)
 RESNET18_LAYERS = (2, 2, 2, 2)
@@ -110,11 +112,21 @@ class VlnResnetDepthEncoder(nn.Module):
             c + spatial_embedding_dim, h, w
         )
 
-    def forward(self, depth_nhwc: torch.Tensor) -> torch.Tensor:
-        """depth (B, H, W, 1) in [0, 1] -> (B, C + 64, h, w)."""
-        x = self.visual_encoder(depth_nhwc.permute(0, 3, 1, 2))
-        b, _, h, w = x.shape
+    def forward(self, depth_nhwc: torch.Tensor,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """depth (B, H, W, 1) in [0, 1] -> (B, C + 64, h, w). ``dtype``
+        (``TPU.compute_dtype``) runs the encoder in that dtype, the depth
+        cast ahead of the pool, as JAX resnet.py:165-184 does: the trunk's
+        output returns to float32, and the spatial embedding is rounded to
+        ``dtype`` too."""
+        x = depth_nhwc.permute(0, 3, 1, 2)
         emb = self.spatial_embeddings.weight  # (h*w, D)
+        if dtype is None:
+            x = self.visual_encoder(x)
+        else:
+            x = apply_cast(self.visual_encoder, dtype, x.to(dtype)).float()
+            emb = emb.to(dtype).float()
+        b, _, h, w = x.shape
         spatial = emb.t().reshape(1, -1, h, w).expand(b, -1, h, w)
         return torch.cat([x, spatial], dim=1)
 
@@ -231,9 +243,18 @@ class TorchVisionResNetSpatial(nn.Module):
         self.cnn.eval()
         return self
 
-    def forward(self, rgb_nhwc: torch.Tensor) -> torch.Tensor:
-        x = rgb_nhwc.permute(0, 3, 1, 2).float() / 255.0
-        x = nn.functional.adaptive_avg_pool2d(self.cnn(x), 4)
+    def forward(self, rgb_nhwc: torch.Tensor,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """``dtype`` (``TPU.compute_dtype``) runs the trunk in that dtype on
+        ``rgb.to(dtype) / 255`` and returns its output to float32 before
+        the pool; the spatial embedding stays float32 (JAX
+        resnet.py:366-379)."""
+        x = rgb_nhwc.permute(0, 3, 1, 2)
+        if dtype is None:
+            x = self.cnn(x.float() / 255.0)
+        else:
+            x = apply_cast(self.cnn, dtype, x.to(dtype) / 255.0).float()
+        x = nn.functional.adaptive_avg_pool2d(x, 4)
         b = x.shape[0]
         emb = self.spatial_embeddings.weight  # (16, D)
         spatial = emb.t().reshape(1, -1, 4, 4).expand(b, -1, 4, 4)

@@ -92,8 +92,6 @@ def library() -> ctypes.CDLL:
     lib.mapper_known_load_scratch_bytes.restype = ctypes.c_longlong
     lib.mapper_known_load.argtypes = [p] * 9 + [i] * 3 + [f] * 2 + [p]
     lib.mapper_known_load.restype = i
-    lib.mapper_known_load_v1.argtypes = [p] * 8 + [i] * 3 + [f] * 2 + [p]
-    lib.mapper_known_load_v1.restype = i
     lib.mapper_error_string.argtypes = [i]
     lib.mapper_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -106,28 +104,3 @@ def check(err: int, name: str) -> None:
         msg = _lib.mapper_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
 
-
-# -- the first design of K3, kept to time the current one against ----------
-# Only measurement code calls it; ``ops.scatter.known_load`` launches the
-# current design. ``v1_launches`` counts its launches, so a run can show
-# that its main path never reached it.
-v1_launches = {"known_load": 0}
-
-
-def known_load_v1(word, aux, dropped, rows, origin, xyz, sem, counts,
-                  half_res: float) -> None:
-    """K3's first design (one global atomic per point, then a second pass
-    over the cloud) on the same arguments as ``ops.scatter.known_load``.
-    It does not clear: the caller clears rows ``rows`` first, as
-    ``mapping.mapper.clear_lanes`` does."""
-    from ivlnce_tpu_torch.ops import scatter as S
-
-    if word.device.type != "cuda":
-        raise ValueError(f"known_load_v1: a kernel launch needs CUDA "
-                         f"tensors, got {word.device}")
-    pointers, sizes, floats = S.known_load_args(
-        word, aux, dropped, rows, origin, xyz, sem, counts, half_res)
-    err = library().mapper_known_load_v1(*pointers, *sizes, *floats,
-                                         S.stream_arg(word.device))
-    v1_launches["known_load"] += 1
-    check(err, "mapper_known_load_v1")

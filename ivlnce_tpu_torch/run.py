@@ -1,13 +1,14 @@
 """Entry point of the PyTorch port (mirrors the repository's run.py):
 
-    python -m ivlnce_tpu_torch.run --run-type {train,eval} \
+    python -m ivlnce_tpu_torch.run --run-type {train,eval,inference} \
         --exp-config <yaml> [--device cuda|cpu] [opt.key value ...]
 
 Runs on the CUDA card unless ``--device cpu`` is given; without a card
 and without ``--device cpu`` it raises. ``train`` runs DAgger collection
-and training (the ``dagger`` and ``iterative_collection_dagger``
-trainers), ``eval`` the episodic and iterative evaluations; ``inference``
-is not ported yet."""
+and training (the ``dagger``, ``iterative_collection_dagger`` and
+``iterative_dagger`` trainers), ``eval`` the episodic and iterative
+evaluations; ``inference`` calls the trainer's ``inference()``, which
+raises ``NotImplementedError`` as the JAX package's does."""
 
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ import argparse
 import random
 
 import numpy as np
+
+RUN_TYPES = ("train", "eval", "inference")
 
 
 def register_all() -> None:
@@ -39,22 +42,16 @@ def run_exp(exp_config: str, run_type: str, opts=None, device=None):
     logging_util.add_filehandler(config.LOG_FILE)
     random.seed(config.TASK_CONFIG.SEED)
     np.random.seed(config.TASK_CONFIG.SEED)
-    if run_type not in ("train", "eval"):
-        raise NotImplementedError(
-            f"--run-type {run_type} waits for a later slice of the port"
-        )
+    if run_type not in RUN_TYPES:
+        raise ValueError(f"unknown run type {run_type}")
     trainer = registry.get_trainer(config.TRAINER_NAME)(config, device)
-    if run_type == "train":
-        trainer.train()
-    else:
-        trainer.eval()
+    getattr(trainer, run_type)()
     return trainer
 
 
 def main() -> None:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--run-type", choices=["train", "eval"],
-                        required=True)
+    parser.add_argument("--run-type", choices=RUN_TYPES, required=True)
     parser.add_argument("--exp-config", type=str, required=True)
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     parser.add_argument("opts", default=None, nargs=argparse.REMAINDER,

@@ -601,6 +601,11 @@ class BaseVLNCETrainer:
                 rgb_frames = [rgb_frames[i] for i in state_index]
         return (envs,) + arrays + (batch, rgb_frames)
 
+    def inference(self) -> None:
+        """``--run-type inference``: not implemented, as in the JAX package
+        (its base_trainer.py:795-796)."""
+        raise NotImplementedError
+
     # -- eval entry point -----------------------------------------------------
     def eval(self) -> None:
         os.makedirs(self.config.TENSORBOARD_DIR, exist_ok=True)

@@ -113,6 +113,33 @@ def test_entry_point_refuses_a_missing_card_to_train():
     assert "no CUDA device" in proc.stderr
 
 
+def test_inference_run_type_reaches_the_trainer(tmp_path, monkeypatch):
+    """``--run-type inference`` is accepted and calls the trainer's
+    ``inference()``, which raises ``NotImplementedError`` as the JAX
+    package's does."""
+    from ivlnce_tpu_torch import run
+    from ivlnce_tpu_torch.trainers.base_trainer import BaseVLNCETrainer
+
+    called = []
+    inference = BaseVLNCETrainer.inference
+
+    def recording(self):
+        called.append(type(self).__name__)
+        return inference(self)
+
+    monkeypatch.setattr(BaseVLNCETrainer, "inference", recording)
+    assert "inference" in run.RUN_TYPES
+    config = os.path.join(REPO, "configs/fake/map_cma_eval_iterative.yaml")
+    opts = ["LOG_FILE", str(tmp_path / "log")]
+    for key in ("CHECKPOINT_FOLDER", "RESULTS_DIR", "TENSORBOARD_DIR"):
+        opts += [key, str(tmp_path / key.lower())]
+    with pytest.raises(NotImplementedError):
+        run.run_exp(config, "inference", opts, device="cpu")
+    assert called == ["IterativeCollectionDaggerTrainer"]
+    with pytest.raises(ValueError, match="unknown run type"):
+        run.run_exp(config, "serve", opts, device="cpu")
+
+
 def test_chip_smoke_fails_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
@@ -177,22 +204,34 @@ def test_wrappers_check_their_arguments(rng):
                     inp.lane_ras, 2048, params.map_dims, params.half_res)
 
 
-def test_first_design_launchers_take_no_cpu_tensors(rng):
-    """The first design of K3 has no plain path of its own: on CPU tensors
-    it raises before anything is built."""
+def test_known_load_launcher_runs_plain_on_cpu_tensors(rng):
+    """K3's launcher on CPU tensors runs the plain version, builds nothing
+    and counts no launch; a tensor of another device or dtype raises
+    before anything is built."""
     from ivlnce_tpu_torch.mapping import mapper as M
 
-    state = M.init_state(2, 16, "cpu")
-    xyz = torch.from_numpy(rng.uniform(-0.5, 0.5, (1, 8, 3)).astype(
+    xyz = torch.from_numpy(rng.uniform(-0.3, 0.3, (1, 8, 3)).astype(
         np.float32))
-    with pytest.raises(ValueError, match="needs CUDA tensors"):
-        kernels.known_load_v1(state.word, state.aux, state.dropped,
-                              torch.tensor([1], dtype=torch.int32),
-                              torch.tensor([[-8, -8]], dtype=torch.int32),
-                              xyz, torch.zeros(1, 8, dtype=torch.uint8),
-                              torch.tensor([8], dtype=torch.int32), 0.05)
+    args = (torch.tensor([1], dtype=torch.int32),
+            torch.tensor([[-8, -8]], dtype=torch.int32), xyz,
+            torch.from_numpy(rng.integers(0, 13, (1, 8)).astype(np.uint8)),
+            torch.tensor([8], dtype=torch.int32), 0.05)
+    states = [M.init_state(2, 16, "cpu") for _ in range(2)]
+    before = S.launches.known_load
+    S.known_load(states[0].word, states[0].aux, states[0].dropped, *args)
+    S.known_load_plain(states[1].word, states[1].aux, states[1].dropped,
+                       *args)
+    assert torch.equal(states[0].word, states[1].word)
+    assert torch.equal(states[0].aux, states[1].aux)
+    assert int((states[0].word[1] != S.EMPTY_WORD).sum()) > 0
+    meta = M.init_state(2, 16, "meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        S.known_load(meta.word, meta.aux, meta.dropped, *args)
+    with pytest.raises(TypeError, match="rows"):
+        S.known_load(states[0].word, states[0].aux, states[0].dropped,
+                     args[0].long(), *args[1:])
     assert kernels._lib is None
-    assert kernels.v1_launches == {"known_load": 0}
+    assert S.launches.known_load == before
 
 
 def test_kernel_build_needs_nvcc_and_happens_only_when_called():
@@ -246,10 +285,10 @@ def test_trainer_names_resolve_to_eval_trainers(name, tmp_path):
     assert registry.get_trainer(name) is type(trainer)
 
 
-# what each trainer's train() refuses before any collection: bfloat16
-# encoders (their own slice) and more than one device
+# what each trainer's train() refuses before any collection: more than
+# one device
 REFUSALS = {
-    "dagger": (("TPU.compute_dtype", "bfloat16"), "bfloat16"),
+    "dagger": (("TPU.data_parallel_devices", "2"), "one device"),
     "iterative_collection_dagger": (("TPU.data_parallel_devices", "2"),
                                     "one device"),
     "iterative_dagger": (("TPU.data_parallel_devices", "2"), "one device"),

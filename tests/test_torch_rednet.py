@@ -169,8 +169,8 @@ def test_predicted_mapper_steps_match_jax(full_weights, monkeypatch):
     predict = TR.predict_semantics
     fed = {}
 
-    def fed_labels(m, rgb, depth):
-        own = predict(m, rgb, depth)
+    def fed_labels(m, rgb, depth, dtype=None):
+        own = predict(m, rgb, depth, dtype)
         fed["own"] = own
         return torch.from_numpy(fed["jax"].copy())
 
@@ -249,7 +249,8 @@ def test_predicted_known_mapper_matches_jax(tmp_path):
 def test_predicted_mapper_from_config_uses_a_seeded_rednet():
     """No reference checkpoint in the repository: a RedNet from a seeded
     generator, in eval mode, the same on every build; known-map mode builds
-    none."""
+    none; with ``TPU.compute_dtype bfloat16`` the same weights label a
+    frame in bfloat16."""
     from ivlnce_tpu_torch.config import get_config
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -270,7 +271,34 @@ def test_predicted_mapper_from_config_uses_a_seeded_rednet():
         config, torch.device("cpu")).rednet is None
     config.defrost()
     config.TPU.compute_dtype = "bfloat16"
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        TOT.PredictedSemanticsIterativeMapper.from_config(
-            config, torch.device("cpu"))
+    config.TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.HEIGHT = 32
+    config.TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.WIDTH = 32
+    c = TOT.PredictedSemanticsIterativeMapper.from_config(
+        config, torch.device("cpu"))
     assert math.isfinite(float(next(a.rednet.parameters()).detach().sum()))
+    # bfloat16: the same float32 weights; the device step labels a frame
+    # with RedNet run in bfloat16
+    assert c.compute_dtype == torch.bfloat16
+    for (ka, va), (kc, vc) in zip(a.rednet.state_dict().items(),
+                                  c.rednet.state_dict().items()):
+        assert ka == kc and vc.dtype == va.dtype and torch.equal(va, vc)
+    seen = []
+    hook = c.rednet.conv1.register_forward_pre_hook(
+        lambda m, inp: seen.append(inp[0].dtype))
+    rng = np.random.default_rng(11)
+    depth = rng.uniform(0.05, 0.6, (1, 32, 32, 1)).astype(np.float32)
+    rgb = rng.integers(0, 256, (1, 48, 48, 3)).astype(np.uint8)
+    masks = np.zeros(1, np.float32)
+    c.host_prepare({}, masks)
+    with torch.no_grad():
+        _, occ, sem = c.make_device_step()(
+            c.state, {"depth": torch.from_numpy(depth),
+                      "rgb": torch.from_numpy(rgb),
+                      "world_robot_pose": np.array([[0.0, 1.25, 0.0]],
+                                                   np.float32),
+                      "world_robot_orientation": np.zeros((1, 2),
+                                                          np.float32)},
+            masks, c.rednet)
+    hook.remove()
+    assert seen == [torch.bfloat16]
+    assert sem.dtype == torch.uint8 and int(occ.sum()) > 0

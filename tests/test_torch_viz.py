@@ -4,7 +4,7 @@ frames (``utils/viz.py``), the top-down map measure on FakeSim
 its fallbacks (``cv2`` set to None in both packages' modules, as on a
 machine without it); the host-phase timers (``utils/profiling.py``, as
 ``tests/test_profiling.py`` holds the JAX package's); the on-demand
-trace; and the policies' refusal of bfloat16."""
+trace; and both policies built for bfloat16."""
 
 import os
 import pickle
@@ -239,13 +239,46 @@ def test_trace_window_writes_a_chrome_trace(tmp_path, monkeypatch):
 
 # -- bfloat16 -------------------------------------------------------------------
 @pytest.mark.parametrize("policy_name", ["MapCMAPolicy", "LatentCMAPolicy"])
-def test_policies_refuse_bfloat16(policy_name):
+def test_policies_build_bfloat16(policy_name):
+    """``TPU.compute_dtype bfloat16`` builds both policies with float32
+    weights; their encoders' convolutions then see bfloat16 inputs and
+    weights, and the features come back float32, within bfloat16's
+    rounding of the float32 ones (``tests/test_torch_bf16.py`` holds them
+    against the JAX package)."""
     from ivlnce_tpu_torch.config import get_config
     from ivlnce_tpu_torch.run import register_all
     from ivlnce_tpu_torch.utils.registry import registry
 
     register_all()
-    config = get_config(None, ["TPU.compute_dtype", "bfloat16"])
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        registry.get_policy(policy_name).from_config(
-            config, {"depth_hw": 64, "map_hw": 64})
+    config = get_config(None, ["TPU.compute_dtype", "bfloat16",
+                               "MODEL.STATE_ENCODER.hidden_size", "64"])
+    policy = registry.get_policy(policy_name).from_config(
+        config, {"depth_hw": 64, "map_hw": 64}).eval()
+    assert policy.net.compute_dtype == torch.bfloat16
+    assert {v.dtype for v in policy.state_dict().values()
+            if v.is_floating_point()} == {torch.float32}
+    rng = np.random.default_rng(0)
+    inputs = {"depth_encoder": (torch.from_numpy(
+        rng.uniform(0, 1, (2, 64, 64, 1)).astype(np.float32)),)}
+    if policy_name == "MapCMAPolicy":
+        inputs["map_encoder"] = tuple(torch.from_numpy(
+            rng.integers(0, k, (2, 64, 64)).astype(np.uint8)) for k in (2, 13))
+    else:
+        inputs["rgb_encoder"] = (torch.from_numpy(
+            rng.integers(0, 256, (2, 64, 64, 3)).astype(np.uint8)),)
+    for name, args in inputs.items():
+        encoder = getattr(policy.net, name)
+        seen = set()
+        hooks = [m.register_forward_pre_hook(
+            lambda m, inp: seen.add((inp[0].dtype, m.weight.dtype)))
+            for m in encoder.modules() if isinstance(m, torch.nn.Conv2d)]
+        with torch.no_grad():
+            want = encoder(*args)
+            seen.clear()
+            got = encoder(*args, dtype=torch.bfloat16)
+        for hook in hooks:
+            hook.remove()
+        assert seen == {(torch.bfloat16, torch.bfloat16)}, name
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        err = float((got - want).abs().max() / want.abs().max())
+        assert 1e-4 < err < 0.1, (name, err)
