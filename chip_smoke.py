@@ -104,9 +104,20 @@ Phases (any failure ends the run with a nonzero exit):
    bfloat16 trace the convolution and matrix kernels of the bfloat16
    ranges compute in bfloat16 and those of gru_attention in float32 (by
    kernel name); device ms per range beside phases 7, 9 and 11's float32
-   ones; (e) the three training configs under bfloat16: float32 stored
-   features, checkpoints and optimizer state, and a float32 map encoder
-   in the train step.
+   ones; (e) the three training configs under bfloat16, cut to 6
+   collected episodes (MapCMA, LatentCMA) and 8 over 2 lanes (tour):
+   float32 stored features, checkpoints and optimizer state, and a
+   float32 map encoder in the train step;
+17. the data-parallel IL update (``ivlnce_tpu_torch/parallel/``) at full
+   width: 4 lanes of phase 14a's store, ``TPU.data_parallel_devices`` 2
+   against 1, the two shards on cuda:0 and cuda:1 when there are two
+   cards, else both on cuda:0: (a) one float64 update against the same
+   update on one device (loss terms, RNN states, every gradient and
+   updated weight, the map BatchNorm statistics, each replica equal to
+   the lead); (b) float32 updates through the trainer's
+   ``_update_agent`` in turns, wall ms per train step and peak memory;
+   (c) -1 and 4 resolve to the visible cards. ``--data-parallel`` runs
+   phase 17 alone on a seeded batch, 2-way and, with 4 cards, 4-way.
 
 Prints the kernels as one JSON line and, last, the device as JSON.
 Imports nothing of JAX.
@@ -2807,13 +2818,13 @@ def _scores(model, rgb, depth, dtype):
 
 def phase_bf16_training(card: str, tmp: str) -> dict:
     """Phase 16e: ``map_cma_train_tf.yaml`` under bfloat16 with phase
-    14a's cuts through ``phase_train`` (K1 and K2 once per collection
-    step): the stored depth features are float32 (collection encodes the
-    frozen encoders in float32, as the JAX package's ``encode_feats``
-    does), so is every tensor of the checkpoint and the optimizer state,
-    and a train step's map encoder runs and differentiates in float32.
-    Then the LatentCMA and tour-BPTT trainers under bfloat16, cut to 6
-    and 20 collected episodes."""
+    14a's cuts and 6 collected episodes through ``phase_train`` (K1 and
+    K2 once per collection step): the stored depth features are float32
+    (collection encodes the frozen encoders in float32, as the JAX
+    package's ``encode_feats`` does), so is every tensor of the checkpoint
+    and the optimizer state, and a train step's map encoder runs and
+    differentiates in float32. Then the LatentCMA and tour-BPTT trainers
+    under bfloat16, cut to 6 collected episodes and to 8 over 2 lanes."""
     import random
 
     from ivlnce_tpu_torch.trainers.base_trainer import load_checkpoint
@@ -2821,8 +2832,9 @@ def phase_bf16_training(card: str, tmp: str) -> dict:
     from ivlnce_tpu_torch.trainers.trajectory_store import TrajectoryStore
 
     out = {}
-    summary, trainer = phase_train(card, tmp, "train_map_cma", BF16_OPTS,
-                                   run="train_map_cma_bf16")
+    summary, trainer = phase_train(
+        card, tmp, "train_map_cma", BF16_OPTS + ("IL.DAGGER.update_size", "6"),
+        run="train_map_cma_bf16")
     net = trainer.policy.net
     if net.compute_dtype != torch.bfloat16:
         raise SystemExit("train_map_cma_bf16: the policy is not bfloat16")
@@ -2869,12 +2881,13 @@ def phase_bf16_training(card: str, tmp: str) -> dict:
         raise SystemExit("train_map_cma_bf16: float32 parts of the "
                          "training ran or were stored in another dtype")
     out["train_map_cma_bf16"] = summary
-    # the tour sampler needs at least as many tours (6 of 4 episodes in
-    # the fake train split) as lanes per batch (5)
-    for path, episodes in (("train_latent", "6"), ("train_tour", "20")):
-        out[f"{path}_bf16"] = phase_train(
-            card, tmp, path, BF16_OPTS + ("IL.DAGGER.update_size", episodes),
-            run=f"{path}_bf16")[0]
+    # the tour sampler needs at least as many tours (of 4 episodes in the
+    # fake train split) as lanes per batch
+    for path, cut in (("train_latent", ("IL.DAGGER.update_size", "6")),
+                      ("train_tour", ("IL.batch_size", "2",
+                                      "IL.DAGGER.update_size", "8"))):
+        out[f"{path}_bf16"] = phase_train(card, tmp, path, BF16_OPTS + cut,
+                                          run=f"{path}_bf16")[0]
     return out
 
 
@@ -2949,10 +2962,336 @@ def phase_bf16(card: str, tmp: str, ckpts: dict, one_tour, e2e: dict,
     print(f"  phase 16 took {time.perf_counter() - t0:.2f} s")
     return out
 
+# -- phase 17: the data-parallel IL update ------------------------------------
+DP_LANES = 4
+# rounds of each layout, taken in turns (1, k, k, 1), and steps per round
+DP_ROUNDS, DP_STEPS = 2, 5
+# the parameter names whose gradient is 0 in exact arithmetic (14b's)
+VANISHING = ("net.text_k.bias",) + tuple(
+    f"net.map_encoder.cnn.{i}.conv.0.bias" for i in range(4))
+
+
+def dp_store_batch(store_dir: str) -> tuple:
+    """The first collated batch of DP_LANES lanes of phase 14a's store,
+    its float16 features as float32."""
+    import random
+
+    from ivlnce_tpu_torch.config import get_config
+    from ivlnce_tpu_torch.trainers.dagger_trainer import IWTrajectoryDataset
+
+    config = get_config(TRAIN_CONFIGS["train_map_cma"])
+    random.seed(SEED)
+    obs, *rest = next(IWTrajectoryDataset(
+        store_dir, config.IL.use_iw, config.IL.inflection_weight_coef,
+        DP_LANES).batches())
+    return ({k: v.astype(np.float32) if v.dtype == np.float16 else v
+             for k, v in obs.items()}, *rest)
+
+
+def dp_seeded_batch(t: int, n: int) -> tuple:
+    """A seeded collated batch at full width (``--data-parallel`` runs
+    without a store): T*N rows of instruction tokens, progress, 64^2 maps
+    and the depth encoder's features, episodes starting at step 0."""
+    from ivlnce_tpu_torch.config import get_config
+
+    config = get_config(TRAIN_CONFIGS["train_map_cma"])
+    policy = _training_policy(config, torch.float32, "cpu")
+    rng = np.random.default_rng(SEED)
+    rows = t * n
+    tokens = np.zeros((rows, 200), np.int64)
+    tokens[:, :12] = rng.integers(
+        1, config.MODEL.INSTRUCTION_ENCODER.vocab_size, (rows, 12))
+    obs = {
+        "instruction": tokens,
+        "progress": rng.uniform(0, 1, rows).astype(np.float32),
+        "occupancy_map": rng.integers(0, 2, (rows, 64, 64)).astype(np.uint8),
+        "semantic_map": rng.integers(0, 13, (rows, 64, 64)).astype(np.uint8),
+        "depth_features": rng.normal(
+            0, 1, (rows,) + tuple(policy.net.depth_encoder.output_shape)
+        ).astype(np.float32),
+    }
+    corrected = rng.integers(0, 4, (t, n)).astype(np.int64)
+    prev = np.concatenate([np.zeros((1, n), np.int64), corrected[:-1]])
+    masks = np.ones((t, n), np.float32)
+    masks[0] = 0
+    weights = np.where(np.concatenate([np.ones((1, n)), np.diff(
+        corrected, axis=0) != 0]), 3.2, 1.0).astype(np.float32)
+    return (obs, prev.reshape(-1, 1), masks.reshape(-1, 1), corrected,
+            weights)
+
+
+def _dp_update(policy, config, batch, devices, dtype):
+    """One update of ``policy`` (in place) on ``batch`` in ``dtype``:
+    ``train_step`` on one device, else the data-parallel step over
+    ``devices``. Returns (loss terms, final RNN states, the step)."""
+    from ivlnce_tpu_torch import parallel
+    from ivlnce_tpu_torch.trainers.base_trainer import (
+        make_optimizer,
+        train_step,
+    )
+
+    obs, prev, masks, corrected, weights = batch
+    t, n = corrected.shape
+    fdt = np.float64 if dtype == torch.float64 else np.float32
+    obs = {k: v.astype(fdt) if v.dtype.kind == "f" else v
+           for k, v in obs.items()}
+    masks = masks.reshape(t, n).astype(fdt)
+    args = [obs, prev.astype(np.int64), masks, masks,
+            corrected.astype(np.int64), weights.astype(fdt)]
+    lead = devices[0]
+    if len(devices) == 1:
+        step = train_step
+        args = [{k: torch.from_numpy(v).to(lead) for k, v in obs.items()},
+                *(torch.from_numpy(a).to(lead) for a in args[1:])]
+    else:
+        step = parallel.sharded_train_step(
+            parallel.make_mesh(devices=devices))
+    cfg = config.MODEL.PROGRESS_MONITOR
+    rnn = policy.initial_rnn_states(n, lead).to(dtype)
+    *terms, rnn_out = step(policy, make_optimizer(policy, config), *args,
+                           rnn, cfg.use, cfg.alpha, True)
+    return [float(x) for x in terms], rnn_out, step
+
+
+def dp_check(card: str, batch, devices) -> dict:
+    """Phase 17a: one float64 update over ``devices`` against the same
+    update on one device (``train_step``), from the same seeded weights:
+    loss terms within TRAIN_LOSS_RTOL, the final RNN states and every
+    gradient and updated weight within TRAIN_GRAD_TOL of the one-device
+    tensor's largest |value| (the VANISHING gradients, rounding noise,
+    within TRAIN_NOISE_TOL of the largest gradient), the map BatchNorm
+    statistics within TRAIN_BN_TOL; every replica's weights and buffers
+    equal to the lead's. In float64, because Adam's first step is
+    lr * sign(g): float32 noise in a gradient near 0 would move a weight
+    by 2 lr between two correct runs."""
+    from ivlnce_tpu_torch.config import get_config
+
+    config = get_config(TRAIN_CONFIGS["train_map_cma"])
+    ref = _training_policy(config, torch.float64, devices[0])
+    got = _training_policy(config, torch.float64, devices[0])
+    t0 = time.perf_counter()
+    want_terms, want_rnn, _ = _dp_update(ref, config, batch, devices[:1],
+                                         torch.float64)
+    terms, rnn, step = _dp_update(got, config, batch, devices,
+                                  torch.float64)
+    seconds = time.perf_counter() - t0
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(terms, want_terms)
+                   if b)
+    rnn_err = float((rnn - want_rnn).abs().max() / want_rnn.abs().max())
+    largest = max(float(p.grad.abs().max()) for p in ref.parameters()
+                  if p.grad is not None)
+    grads = dict(got.named_parameters())
+    grad_err, noise, failed = 0.0, 0.0, []
+    for name, p in ref.named_parameters():
+        if (p.grad is None) != (grads[name].grad is None):
+            failed.append((name, "gradient held on one side only"))
+        elif p.grad is None:
+            continue
+        elif name in VANISHING:
+            ratio = max(float(p.grad.abs().max()),
+                        float(grads[name].grad.abs().max())) / largest
+            noise = max(noise, ratio)
+            if ratio > TRAIN_NOISE_TOL:
+                failed.append((name, ratio))
+        else:
+            ratio = float((grads[name].grad - p.grad).abs().max()
+                          / p.grad.abs().max())
+            grad_err = max(grad_err, ratio)
+            if ratio > TRAIN_GRAD_TOL:
+                failed.append((name, ratio))
+    state, want = got.state_dict(), ref.state_dict()
+    bn_err = weight_err = 0.0
+    for k, v in want.items():
+        if not v.is_floating_point():
+            continue
+        if k.startswith("net.map_encoder.") and k.endswith(
+                ("running_mean", "running_var")):
+            bn_err = max(bn_err, float(((state[k] - v).abs()
+                                        / (1 + v.abs())).max()))
+        else:
+            scale = float(v.abs().max())
+            err = float((state[k] - v).abs().max())
+            weight_err = max(weight_err, err / scale if scale else err)
+    replicas = getattr(step, "replicas", {})
+    for device, replica in replicas.items():
+        theirs = replica.state_dict()
+        for k, v in state.items():
+            if not torch.equal(theirs[k].to(v.device), v):
+                failed.append((f"{device} replica", k))
+    summary = {"card": card, "devices": [str(d) for d in devices],
+               "replicas": [str(d) for d in replicas], "T": batch[3].shape[0],
+               "N": batch[3].shape[1], "loss_terms": terms,
+               "loss_terms_one_device": want_terms, "loss_rel_err": loss_err,
+               "rnn_err": rnn_err, "grad_err": grad_err,
+               "vanishing_noise": noise, "weight_err": weight_err,
+               "map_bn_err": bn_err, "seconds": seconds}
+    print(f"  17a [{card}] float64, {len(devices)}-way over "
+          f"{summary['devices']} (replicas on {summary['replicas']}) vs one "
+          f"device, T={summary['T']} N={summary['N']}: loss terms {terms} vs "
+          f"{want_terms} (worst relative {loss_err:.3e}); RNN states "
+          f"{rnn_err:.3e}; gradients {grad_err:.3e} (vanishing ones "
+          f"{noise:.3e} of the largest); updated weights {weight_err:.3e}; "
+          f"map BatchNorm statistics {bn_err:.3e}; {seconds:.2f} s")
+    if (loss_err > TRAIN_LOSS_RTOL or rnn_err > TRAIN_GRAD_TOL or failed
+            or weight_err > TRAIN_GRAD_TOL or bn_err > TRAIN_BN_TOL):
+        raise SystemExit(f"the {len(devices)}-way update disagrees with the "
+                         f"one-device update: {summary}, {failed[:8]}")
+    return summary
+
+
+def dp_timing(card: str, tmp: str, batch, devices) -> dict:
+    """Phase 17b: float32 updates through the trainer's ``_update_agent``
+    (``TPU.data_parallel_devices`` 1 and k over ``devices``), each from the
+    seeded weights: the first update's loss terms equal; then DP_ROUNDS
+    rounds of DP_STEPS updates of each, in turns (1, k, k, 1): wall ms per
+    train step (host clock over updates that end in the losses' copy to
+    the host) and the peak memory of each round on each device."""
+    from ivlnce_tpu_torch.config import get_config
+    from ivlnce_tpu_torch.trainers.base_trainer import (
+        BaseVLNCETrainer,
+        make_optimizer,
+    )
+
+    k = len(devices)
+    trainers = {}
+    for ways, devs in ((1, devices[:1]), (k, devices)):
+        config = get_config(TRAIN_CONFIGS["train_map_cma"], [
+            "TPU.data_parallel_devices", str(ways),
+            "CHECKPOINT_FOLDER", os.path.join(tmp, f"dp{ways}", "ckpts"),
+            "EVAL.SAVE_RESULTS", "False"])
+        trainer = BaseVLNCETrainer(config, devices[0], devices=devs)
+        trainer.policy = _training_policy(config, torch.float32, devices[0])
+        trainer.optimizer = make_optimizer(trainer.policy, config)
+        trainers[ways] = trainer
+    first = {w: tr._update_agent(*batch)[:3] for w, tr in trainers.items()}
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(first[k], first[1])
+                   if b)
+    used = sorted({torch.device(d).index or 0 for d in devices
+                   if torch.device(d).type == "cuda"})
+    ms = {1: [], k: []}
+    peak = {1: {}, k: {}}
+    for ways in [1, k, k, 1][: 2 * DP_ROUNDS]:
+        for i in used:
+            torch.cuda.reset_peak_memory_stats(i)
+        resident = {i: torch.cuda.memory_allocated(i) for i in used}
+        for i in used:
+            torch.cuda.synchronize(i)
+        t0 = time.perf_counter()
+        for _ in range(DP_STEPS):
+            trainers[ways]._update_agent(*batch)
+        for i in used:
+            torch.cuda.synchronize(i)
+        ms[ways].append((time.perf_counter() - t0) * 1e3 / DP_STEPS)
+        for i in used:
+            p = peak[ways].setdefault(f"cuda:{i}", {"peak_bytes": 0})
+            p["peak_bytes"] = max(p["peak_bytes"],
+                                  torch.cuda.max_memory_allocated(i))
+            p["resident_bytes"] = resident[i]
+    steps = {w: type(tr._train_steps[w]).__name__
+             for w, tr in trainers.items()}
+    summary = {"card": card, "devices": [str(d) for d in devices],
+               "steps": steps, "first_loss_terms": first,
+               "first_loss_rel_err": loss_err,
+               "wall_ms_per_train_step": ms, "rounds": DP_ROUNDS,
+               "steps_per_round": DP_STEPS, "peak_memory": peak}
+    for ways in (1, k):
+        print(f"  17b [{card}] {ways}-way ({steps[ways]}): wall ms per train "
+              f"step {', '.join(f'{x:.2f}' for x in ms[ways])} (rounds of "
+              f"{DP_STEPS}); memory {peak[ways]}")
+    print(f"  17b first update's loss terms, {k}-way vs 1-way, float32: "
+          f"{first[k]} vs {first[1]} (worst relative {loss_err:.3e})")
+    if steps != {1: "function", k: "ShardedTrainStep"}:
+        raise SystemExit(f"phase 17: the trainers took the steps {steps}")
+    if loss_err > TRAIN_LOSS_RTOL:
+        raise SystemExit(f"phase 17: float32 loss terms {first}")
+    return summary
+
+
+def dp_resolution(card: str, tmp: str) -> dict:
+    """Phase 17c: with the trainer's default devices (every visible card),
+    ``TPU.data_parallel_devices`` -1 and 4 resolve for 12 lanes (divisible
+    by 1 to 4 cards) to min(request, visible cards)."""
+    from ivlnce_tpu_torch.config import get_config
+    from ivlnce_tpu_torch.trainers.base_trainer import BaseVLNCETrainer
+
+    visible = torch.cuda.device_count()
+    got = {}
+    for want in (-1, 4):
+        config = get_config(TRAIN_CONFIGS["train_map_cma"], [
+            "TPU.data_parallel_devices", str(want),
+            "CHECKPOINT_FOLDER", os.path.join(tmp, "dp_rule", "ckpts"),
+            "EVAL.SAVE_RESULTS", "False"])
+        trainer = BaseVLNCETrainer(config, "cuda")
+        got[want] = trainer._data_parallel_devices(12)
+        if len(trainer.data_devices) != visible:
+            raise SystemExit(f"the trainer sees {trainer.data_devices}")
+    expected = {-1: visible, 4: min(4, visible)}
+    print(f"  17c [{card}] {visible} visible card(s): "
+          f"TPU.data_parallel_devices -1 and 4 resolve to {got} for 12 lanes")
+    if got != expected:
+        raise SystemExit(f"phase 17: resolved {got}, expected {expected}")
+    return {"visible": visible, "resolved": got}
+
+
+def phase_data_parallel(card: str, tmp: str, batch, ways: int = 2,
+                        devices=None) -> dict:
+    """Phase 17: the data-parallel IL update at full width (MapCMA, hidden
+    512, 64^2 maps): ``ways`` shards, one per card where there are that
+    many cards, else all on cuda:0 (or on the ``devices`` given, as a
+    rehearsal on the CPU gives them). (a) float64 against one device;
+    (b) float32 through ``_update_agent``, timed; (c) the device-count
+    rule on the cards. No mapper kernel runs (their counters stay 0)."""
+    from ivlnce_tpu_torch.ops import scatter as S
+
+    t0 = time.perf_counter()
+    visible = torch.cuda.device_count()
+    if devices is None:
+        devices = ([f"cuda:{i}" for i in range(ways)] if visible >= ways
+                   else ["cuda:0"] * ways)
+    print(f"  {ways} shards on {devices} ({visible} visible card(s))")
+    S.launches.reset()
+    out = {"check": dp_check(card, batch, devices),
+           "timing": dp_timing(card, tmp, batch, devices)}
+    if visible:
+        out["resolution"] = dp_resolution(card, tmp)
+    launches = {k: getattr(S.launches, k) for k in KERNELS}
+    if any(launches.values()):
+        raise SystemExit(f"phase 17: mapper kernels launched: {launches}")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 17 ({ways}-way) took {out['seconds']:.2f} s")
+    return out
+
+
+def data_parallel_only() -> int:
+    """``chip_smoke.py --data-parallel``: phase 17 alone on a seeded batch
+    (T=30, N=4), 2-way and, with 4 cards, 4-way, over distinct cards where
+    there are enough."""
+    from ivlnce_tpu_torch.utils.device import resolve_device
+
+    resolve_device("cuda")  # TF32 off
+    card = card_line()
+    print(card)
+    batch = dp_seeded_batch(30, DP_LANES)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for ways in (2, 4) if torch.cuda.device_count() >= 4 else (2,):
+            print(f"phase 17: the data-parallel IL update, {ways}-way")
+            runs[f"{ways}_way"] = phase_data_parallel(card, tmp, batch, ways)
+    print(json.dumps({"data_parallel": runs}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--data-parallel"]:
+        return data_parallel_only()
     # the port reads the host-phase switch at import (phase 13c)
     os.environ["IVLNCE_PHASE_TIMES"] = "1"
     from ivlnce_tpu_torch.ops import kernels
@@ -3103,6 +3442,11 @@ def main() -> int:
                                       "rxr": rxr_ckpt}, one_tour, e2e,
                           traces)
         training.update(bf16.pop("training"))
+
+        print("phase 17: the data-parallel IL update (MapCMA, 4 lanes of "
+              "phase 14a's store), 2-way against 1-way")
+        training["data_parallel"] = phase_data_parallel(
+            card, tmp, dp_store_batch(training["train_map_cma"]["store"]))
 
     # each kernel's launches come from the path that runs it
     kernel_path = {"accumulate": "iterative", "rasterize": "iterative",

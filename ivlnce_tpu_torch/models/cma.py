@@ -104,7 +104,9 @@ class MapCMANet(nn.Module):
     ) -> CMAFeatures:
         """``training`` runs a trainable map encoder's BatchNorm on batch
         statistics (JAX cma.py:173-181); ``depth_features`` (a trajectory
-        store's frozen-encoder features) stand in for the depth encoder."""
+        store's frozen-encoder features) stand in for the depth encoder,
+        and ``map_features`` (``encode_map``'s output, as the data-parallel
+        update computes it over the whole batch) for the map encoder."""
         cfg = self.cfg
         half = self.half
         txt = self.instruction_encoder(observations)
@@ -115,12 +117,13 @@ class MapCMANet(nn.Module):
                 dep = self.depth_encoder(observations["depth"],
                                          self.compute_dtype)
         dep = dep.flatten(2)
-        with record_function("map_encoder"):
-            map_feat = self.map_encoder(
-                observations["occupancy_map"], observations["semantic_map"],
-                training=training and cfg.SEMANTIC_MAP_ENCODER.trainable,
-                dtype=self.compute_dtype,
-            ).flatten(2)
+        if "map_features" in observations:
+            map_feat = observations["map_features"]
+        else:
+            map_feat = self.encode_map(observations["occupancy_map"],
+                                       observations["semantic_map"],
+                                       training)
+        map_feat = map_feat.flatten(2)
         idx = ((prev_actions.reshape(-1).float() + 1)
                * action_masks.reshape(-1).float()).long()
         prev_a = self.prev_action_embedding(idx)
@@ -143,6 +146,17 @@ class MapCMANet(nn.Module):
             vis2_v=map_kv[:, half:],
             prev_a=prev_a,
         )
+
+    def encode_map(self, occupancy: torch.Tensor, semantic: torch.Tensor,
+                   training: bool = False) -> torch.Tensor:
+        """The map encoder's (B, C, R/16, C/16) features of (B, R, C)
+        maps."""
+        with record_function("map_encoder"):
+            return self.map_encoder(
+                occupancy, semantic,
+                training=training and self.cfg.SEMANTIC_MAP_ENCODER.trainable,
+                dtype=self.compute_dtype,
+            )
 
     num_recurrent_layers = 2
 

@@ -9,7 +9,7 @@ in a tour."""
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -151,16 +151,42 @@ class CMAPolicy(nn.Module):
     def _encode_seq(self, observations, prev_actions, masks, training):
         """``net.encode`` over the T*N rows; while training with
         ``encode_chunk`` > 0 and smaller than T*N, in chunks of that many
-        rows, each recomputed in the backward pass
-        (``torch.utils.checkpoint``), so only the chunks' outputs are kept.
-        The rows are zero-padded up to a whole number of chunks and the
-        padding is cut from the outputs; each chunk's map BatchNorm sees
-        that chunk's rows, padding included, as the JAX scan's does."""
+        rows (``_over_chunks``); each chunk's map BatchNorm sees that
+        chunk's rows, padding included, as the JAX scan's does."""
+        keys = [k for k, v in observations.items()
+                if isinstance(v, torch.Tensor)]
+
+        def encode(*rows):  # the observations, prev actions, masks
+            return tuple(self.net.encode(dict(zip(keys, rows)), rows[-2],
+                                         rows[-1], training))
+
+        return CMAFeatures(*self._over_chunks(
+            encode, [observations[k] for k in keys]
+            + [prev_actions.reshape(-1, 1), masks], training))
+
+    def encode_maps(self, occupancy: torch.Tensor, semantic: torch.Tensor,
+                    training: bool = True) -> torch.Tensor:
+        """The map encoder over the T*N rows of the training forward,
+        chunked as ``_encode_seq`` chunks them, so each chunk's BatchNorm
+        statistics are those the whole forward would take: the features
+        the data-parallel update sends to its shards as
+        ``map_features``."""
+        return self._over_chunks(
+            lambda occ, sem: (self.net.encode_map(occ, sem, training),),
+            [occupancy, semantic], training)[0]
+
+    def _over_chunks(self, fn, tensors: List[torch.Tensor],
+                     training: bool) -> Tuple[torch.Tensor, ...]:
+        """``fn(*tensors)``, a tuple of outputs, over all the tensors'
+        rows at once; while training with ``encode_chunk`` > 0 and smaller
+        than the row count, in chunks of that many rows, each recomputed
+        in the backward pass (``torch.utils.checkpoint``), so only the
+        chunks' outputs are kept. The rows are zero-padded up to a whole
+        number of chunks and the padding is cut from the outputs."""
         chunk = self.encode_chunk
-        tn = masks.shape[0]
+        tn = tensors[0].shape[0]
         if not training or chunk <= 0 or tn <= chunk:
-            return self.net.encode(observations, prev_actions, masks,
-                                   training)
+            return fn(*tensors)
         k = -(-tn // chunk)
         pad = k * chunk - tn
 
@@ -169,20 +195,9 @@ class CMAPolicy(nn.Module):
                 a = torch.cat([a, a.new_zeros((pad,) + a.shape[1:])], 0)
             return a.split(chunk)
 
-        keys = [k_ for k_, v in observations.items()
-                if isinstance(v, torch.Tensor)]
-        obs_c = [dict(zip(keys, parts)) for parts in
-                 zip(*(chunked(observations[k_]) for k_ in keys))]
-        pa_c = chunked(prev_actions.reshape(-1, 1))
-        m_c = chunked(masks)
-
-        def encode_chunk(o, pa, m):
-            return tuple(self.net.encode(o, pa, m, training))
-
-        outs = [checkpoint(encode_chunk, o, pa, m, use_reentrant=False)
-                for o, pa, m in zip(obs_c, pa_c, m_c)]
-        return CMAFeatures(*(torch.cat(parts, 0)[:tn]
-                             for parts in zip(*outs)))
+        outs = [checkpoint(fn, *rows, use_reentrant=False)
+                for rows in zip(*map(chunked, tensors))]
+        return tuple(torch.cat(o, 0)[:tn] for o in zip(*outs))
 
     def act(self, observations, rnn_states, prev_actions, masks,
             generator: Optional[torch.Generator] = None) -> PolicyOutput:

@@ -1,0 +1,207 @@
+"""The data-parallel IL update: the PyTorch counterpart of
+``ivlnce_tpu/parallel/train.py``.
+
+The JAX package jits the single-device train step over a ``(data,
+model)`` mesh; XLA inserts the collectives, so its result is the
+single-device step's on the whole batch. ``sharded_train_step`` keeps
+that meaning in one process: its step takes ``train_step``'s arguments,
+splits the (T, N) batch into blocks of lanes (``mesh.lane_shards``),
+runs each block's forward on its device and returns the whole batch's
+loss terms and final RNN states, after one optimizer step on the whole
+batch's gradient.
+
+- The loss terms are the whole batch's: each shard adds its lanes' share
+  (``train_loss``'s ``n_lanes`` and ``n_aux_rows``, the batch's lane
+  count and its count of rows with a positive inflection weight, known on
+  the host before the split), and the shards' shares add up.
+- The map encoder's training-mode BatchNorm normalises with statistics
+  over all T*N rows, or over each chunk of the T-major rows with
+  ``TPU.train_encode_chunk`` (zero padding included). Each layer's
+  statistics depend on every row's previous layer, so it cannot run
+  shard by shard. The lead device runs it over the whole batch, chunked
+  as the one-device forward chunks it (``policy.encode_maps``), and
+  sends each shard its rows' features (``map_features``, 2048 floats a
+  row at 64^2 maps); autograd carries their gradients back. This keeps
+  the one-device step's statistics exactly, at the price of the map
+  encoder's work staying on the lead device; the other design, shards
+  exchanging per-layer statistics through an autograd-aware reduction,
+  would spread that work but needs four collectives forward and four
+  back per step and knows no chunks. ``nn.DataParallel`` (per-replica
+  statistics) and ``SyncBatchNorm`` (a process group, no chunks) give
+  neither meaning.
+- The lead device holds the weights the optimizer steps. Every other
+  device holds a replica, made once per policy; after backward the
+  replicas' gradients are added onto the lead's
+  (``torch.cuda.comm.reduce_add_coalesced``), the optimizer takes one
+  step on the sum, the map encoder's running statistics are recomputed
+  over the whole batch with the updated weights (``update_map_bn``), and
+  every parameter and buffer is broadcast back into the replicas
+  (``broadcast_coalesced``), so they are equal on every device after each
+  step. The optimizer's state and a checkpoint are a one-device run's.
+  Replicas are updated in place, so each one's kept bfloat16 cast copies
+  (``models/nn.py``, keyed by version counters) are remade and cuDNN's
+  GRU weights stay the parameters' own memory; the recurrent modules
+  keep the train mode the trainer set.
+- Shards on the lead device (every shard on a one-card machine or the
+  CPU) run in turn with the lead's weights: no copy, no collective.
+- A shard's host arrays are uploaded straight to its device.
+
+The step returns, like ``train_step``, the detached loss terms and the
+final RNN states, gathered by lane on the lead device."""
+
+from __future__ import annotations
+
+import copy
+import itertools
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+from torch.profiler import record_function
+
+from ivlnce_tpu_torch.parallel.mesh import Mesh, lane_shards
+from ivlnce_tpu_torch.trainers import base_trainer
+
+MAP_KEYS = ("occupancy_map", "semantic_map")
+
+
+def _upload(a, device: torch.device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _lane_rows(a, lanes: slice, t: int, n: int, device: torch.device,
+               flat: bool) -> torch.Tensor:
+    """The ``lanes`` of a (T, N) array, or of T-major (T*N, ...) rows when
+    ``flat``, on ``device``; a host array's go to it in one upload."""
+    rest = tuple(a.shape[1:]) if flat else ()
+    part = a.reshape((t, n) + rest)[:, lanes]
+    return _upload(part.reshape((-1,) + rest) if flat else part, device)
+
+
+class ShardedTrainStep:
+    """A step with ``train_step``'s arguments and results over
+    ``mesh``'s data axis. The arrays may be host arrays or tensors; the
+    policy lives on ``mesh.lead``."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self._policy: Optional[nn.Module] = None
+        self.replicas: Dict[torch.device, nn.Module] = {}
+
+    def _replicas_of(self, policy: nn.Module) -> Dict[torch.device,
+                                                        nn.Module]:
+        """The replica on each device but the lead, made on first use for
+        this policy."""
+        if self._policy is not policy:
+            self._policy, self.replicas = policy, {}
+        for device in dict.fromkeys(self.mesh.devices):
+            if device == self.mesh.lead or device in self.replicas:
+                continue
+            with torch.no_grad():
+                replica = copy.deepcopy(policy).to(device)
+            for module in replica.modules():
+                if "_cast_copy" in module.__dict__:
+                    module.__dict__["_cast_copy"] = None
+            self.replicas[device] = replica
+        return self.replicas
+
+    def _reduce_grads(self, policy: nn.Module) -> None:
+        """The replicas' gradients added onto the lead's."""
+        if not self.replicas:
+            return
+        from torch.cuda import comm
+
+        lead = list(policy.parameters())
+        copies = [list(r.parameters()) for r in self.replicas.values()]
+        held = [i for i, p in enumerate(lead)
+                if any(ps[i].grad is not None for ps in [lead] + copies)]
+
+        def grad(p):
+            return torch.zeros_like(p) if p.grad is None else p.grad
+
+        summed = comm.reduce_add_coalesced(
+            [[grad(ps[i]) for i in held] for ps in [lead] + copies],
+            destination=self.mesh.lead.index)
+        for i, g in zip(held, summed):
+            lead[i].grad = g
+        for replica in self.replicas.values():
+            replica.zero_grad(set_to_none=True)
+
+    def _broadcast(self, policy: nn.Module) -> None:
+        """Every parameter and buffer of the lead into the replicas."""
+        if not self.replicas:
+            return
+        from torch.cuda import comm
+
+        def tensors(module):
+            return list(itertools.chain(module.parameters(),
+                                        module.buffers()))
+
+        copies = comm.broadcast_coalesced(
+            [t.detach() for t in tensors(policy)],
+            [self.mesh.lead] + list(self.replicas))
+        with torch.no_grad():
+            for replica, new in zip(self.replicas.values(), copies[1:]):
+                for dst, src in zip(tensors(replica), new):
+                    dst.copy_(src)
+
+    def __call__(self, policy, optimizer, observations, prev_actions,
+                 episode_masks, tour_masks, corrected, weights, rnn_states,
+                 use_progress: bool, alpha: float, update_map_bn: bool):
+        lead = self.mesh.lead
+        home = next(policy.parameters()).device
+        if home != lead:
+            raise ValueError(f"the policy is on {home}, the mesh leads "
+                             f"with {lead}")
+        t, n = corrected.shape
+        replicas = self._replicas_of(policy)
+        n_aux_rows = int((torch.as_tensor(weights) > 0).sum())
+        maps = map_features = None
+        if hasattr(policy.net, "map_encoder"):
+            maps = [_upload(observations[k], lead) for k in MAP_KEYS]
+            with record_function("train_encode"):
+                map_features = policy.encode_maps(*maps, training=True)
+        parts = []
+        for device, lanes in lane_shards(self.mesh, n):
+            module = replicas.get(device, policy)
+
+            def rows(a, flat=True):
+                return _lane_rows(a, lanes, t, n, device, flat)
+
+            obs = {k: rows(v) for k, v in observations.items()
+                   if maps is None or k not in MAP_KEYS}
+            if map_features is not None:
+                obs["map_features"] = rows(map_features)
+            parts.append(base_trainer.train_loss(
+                module, obs, rows(prev_actions), rows(episode_masks, False),
+                rows(tour_masks, False), rows(corrected, False),
+                rows(weights, False), rnn_states[lanes].to(device),
+                use_progress, alpha, n_lanes=n, n_aux_rows=n_aux_rows,
+            ))
+        loss, action_loss, aux_loss = (
+            torch.stack([p[i].to(lead) for p in parts]).sum()
+            for i in range(3))
+        with record_function("backward"):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        with record_function("grad_reduce"):
+            self._reduce_grads(policy)
+        with record_function("optimizer"):
+            optimizer.step()
+        if update_map_bn:
+            with record_function("map_bn_stats"):
+                policy.net.map_encoder.update_running_stats(*maps)
+        with record_function("param_broadcast"):
+            self._broadcast(policy)
+        rnn_out = torch.cat([p[3].detach().to(lead) for p in parts], 0)
+        return (loss.detach(), action_loss.detach(), aux_loss.detach(),
+                rnn_out)
+
+
+def sharded_train_step(mesh: Mesh) -> ShardedTrainStep:
+    """The data-parallel counterpart of ``base_trainer.train_step`` over
+    ``mesh`` (JAX ``sharded_train_step``)."""
+    return ShardedTrainStep(mesh)

@@ -11,10 +11,11 @@ are written as the JAX package writes them.
 Training (base_il_trainer.py:173-219): ``train_step`` is the BPTT update
 over a (T, N) batch (inflection-weighted cross-entropy plus the progress
 monitor, backward, Adam, then the map encoder's BatchNorm statistics);
-``_update_agent`` feeds it a collated batch. The registered trainers
-(``dagger_trainer.py`` and its two iterative subclasses) collect the
-trajectories and run the loops; ``save_training_checkpoint`` writes in
-the background with ``TPU.async_checkpointing``."""
+``_update_agent`` feeds it a collated batch, over the devices
+``TPU.data_parallel_devices`` resolves to (``parallel/``). The registered
+trainers (``dagger_trainer.py`` and its two iterative subclasses) collect
+the trajectories and run the loops; ``save_training_checkpoint`` writes
+in the background with ``TPU.async_checkpointing``."""
 
 from __future__ import annotations
 
@@ -26,12 +27,13 @@ import threading
 import time
 import zipfile
 from collections import defaultdict
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
+from ivlnce_tpu_torch import parallel
 from ivlnce_tpu_torch.envs.vector_env import construct_envs_auto_reset_false
 from ivlnce_tpu_torch.mapping.obs_transforms import get_active_obs_transforms
 from ivlnce_tpu_torch.models import checkpoint_io as cio
@@ -160,12 +162,19 @@ def make_optimizer(policy, config) -> torch.optim.Adam:
 
 def train_loss(policy, observations, prev_actions, episode_masks,
                tour_masks, corrected, weights, rnn_states,
-               use_progress: bool, alpha: float):
+               use_progress: bool, alpha: float,
+               n_lanes: Optional[int] = None,
+               n_aux_rows: Optional[int] = None):
     """The training forward and its loss (JAX base_trainer.py:69-93):
     ``mean_n(sum_t w * CE / sum_t w)`` over the (T, N) ``corrected``
     actions and inflection ``weights``, plus ``alpha`` times the progress
     monitor's squared error over the rows with w > 0. Returns (loss,
-    action loss, aux loss, final rnn_states)."""
+    action loss, aux loss, final rnn_states).
+
+    A shard of a larger batch (``parallel/train.py``) passes the whole
+    batch's lane count ``n_lanes`` and its count of rows with w > 0
+    ``n_aux_rows``: its terms are then its share of the whole batch's, and
+    the shards' terms add up to them."""
     t, n = corrected.shape
     logits, features, rnn_out = policy.build_distribution(
         observations, rnn_states, prev_actions, episode_masks, tour_masks,
@@ -174,14 +183,16 @@ def train_loss(policy, observations, prev_actions, episode_masks,
     with record_function("train_loss"):
         logp = torch.log_softmax(logits.reshape(t, n, -1), dim=-1)
         action_loss = -logp.gather(-1, corrected[..., None])[..., 0]
-        action_loss = ((weights * action_loss).sum(0)
-                       / weights.sum(0)).mean()
+        action_loss = (weights * action_loss).sum(0) / weights.sum(0)
+        action_loss = (action_loss.mean() if n_lanes is None
+                       else action_loss.sum() / n_lanes)
         aux_loss = torch.zeros((), device=logits.device)
         if use_progress:
             p_loss = progress_monitor_loss(policy.net, features,
                                            observations["progress"])
             aux_mask = (weights > 0).reshape(-1).float()
-            aux_loss = alpha * (p_loss * aux_mask).sum() / aux_mask.sum()
+            aux_loss = alpha * (p_loss * aux_mask).sum() / (
+                aux_mask.sum() if n_aux_rows is None else n_aux_rows)
     return action_loss + aux_loss, action_loss, aux_loss, rnn_out
 
 
@@ -214,11 +225,26 @@ def train_step(policy, optimizer, observations, prev_actions, episode_masks,
 
 class BaseVLNCETrainer:
     """Evaluation of a MapCMA or LatentCMA checkpoint on the device given
-    by ``device`` ("cuda" unless the caller asks for "cpu")."""
+    by ``device`` ("cuda" unless the caller asks for "cpu"). ``devices``
+    are those the IL update's data axis may use, ``device`` first (JAX
+    ``make_mesh(devices=...)``): by default every visible card, or the one
+    CPU; a list that names the CPU more than once runs that many shards on
+    it."""
 
-    def __init__(self, config, device: Optional[str] = None):
+    def __init__(self, config, device: Optional[str] = None,
+                 devices: Optional[Sequence] = None):
         self.config = config
         self.device = resolve_device(device)
+        if devices is None:
+            lead = self.device
+            if lead.type == "cuda" and lead.index is None:
+                lead = torch.device("cuda", torch.cuda.current_device())
+            devices = [lead] + [d for d in
+                                parallel.local_devices(lead.type)
+                                if d != lead]
+        self.data_devices = [torch.device(d) for d in devices]
+        self._train_steps: Dict[int, Any] = {}
+        self._dp_warned_lanes = set()
         self.policy = None
         self.obs_transforms = []
         self.flush_secs = 30
@@ -284,19 +310,51 @@ class BaseVLNCETrainer:
             self._generator.manual_seed(config.TASK_CONFIG.SEED)
 
     # -- training -------------------------------------------------------------
-    def _check_training_options(self, config) -> None:
-        """Refuse what the port's training cannot do, before any
-        collection: more than one device."""
-        want = config.TPU.data_parallel_devices
-        visible = (torch.cuda.device_count() if self.device.type == "cuda"
-                   else 1)
-        devices = 1 if want in (0, 1) else (visible if want < 0 else want)
-        if devices > 1:
-            raise NotImplementedError(
-                f"TPU.data_parallel_devices {want} asks for {devices} "
-                "devices; the PyTorch port trains on one device "
-                "(ROADMAP: parallel/); set it to 1"
+    def _data_parallel_devices(self, n_lanes: int) -> int:
+        """Data-axis size of the IL update (JAX base_trainer.py:618-644):
+        ``TPU.data_parallel_devices`` (0 or 1: one device; N: up to N;
+        -1: all of ``data_devices``), capped by the devices present and
+        by divisibility: the LARGEST count within the cap that divides
+        the batch's lanes, with one warning per distinct lane count."""
+        want = self.config.TPU.data_parallel_devices
+        if want in (0, 1):
+            return 1
+        avail = len(self.data_devices)
+        n = avail if want < 0 else min(want, avail)
+        full = n
+        while n > 1 and n_lanes % n != 0:
+            n -= 1
+        if n < full and n_lanes not in self._dp_warned_lanes:
+            self._dp_warned_lanes.add(n_lanes)
+            logger.warning(
+                f"data-parallel IL update using {n}/{full} devices: "
+                f"batch lanes ({n_lanes}) not divisible by {full}"
             )
+        return n
+
+    def _train_step_fn(self, n_lanes: int):
+        """``train_step``, or the data-parallel step over the resolved
+        device count, kept by that count (JAX ``_train_step_fn``); each
+        new choice is logged."""
+        ndp = self._data_parallel_devices(n_lanes)
+        if ndp not in self._train_steps:
+            if ndp > 1:
+                mesh = parallel.make_mesh(ndp, devices=self.data_devices)
+                logger.info(
+                    f"IL update: data-parallel over {ndp} devices (mesh "
+                    f"{mesh.shape}: {', '.join(map(str, mesh.devices))})"
+                )
+                self._train_steps[ndp] = parallel.sharded_train_step(mesh)
+            else:
+                logger.info(
+                    f"IL update: one device ({self.device}), "
+                    f"TPU.data_parallel_devices "
+                    f"{self.config.TPU.data_parallel_devices} with "
+                    f"{len(self.data_devices)} device(s) and {n_lanes} "
+                    "lanes"
+                )
+                self._train_steps[ndp] = train_step
+        return self._train_steps[ndp]
 
     def _initialize_training(self, config) -> None:
         """The policy and its optimizer for training; with
@@ -357,34 +415,38 @@ class BaseVLNCETrainer:
         rnn_states: Optional[torch.Tensor] = None,
     ):
         """One BPTT update over a collated (T, N) batch of host arrays
-        (JAX base_trainer.py:689-739); an ``rnn_states`` carry continues
-        a sequence. Returns (loss, action loss, aux loss) as floats and
-        the final rnn_states."""
+        (JAX base_trainer.py:689-739), on one device or data-parallel
+        (``_train_step_fn``); the masks may be (T, N) or the collate's
+        T-major (T*N, 1). An ``rnn_states`` carry continues a sequence.
+        Returns (loss, action loss, aux loss) as floats and the final
+        rnn_states."""
         t, n = corrected_actions.shape
         if rnn_states is None:
             rnn_states = self.policy.initial_rnn_states(n, self.device)
         if tour_not_done_masks is None:
             tour_not_done_masks = not_done_masks
+        step = self._train_step_fn(n)
+        batch = [
+            observations, np.asarray(prev_actions, np.int64),
+            np.asarray(not_done_masks, np.float32).reshape(t, n),
+            np.asarray(tour_not_done_masks, np.float32).reshape(t, n),
+            np.asarray(corrected_actions, np.int64),
+            np.asarray(weights, np.float32),
+        ]
 
-        def dev(a, dtype=None):
-            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                                   device=self.device)
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
         model = self.config.MODEL
         update_map_bn = (model.policy_name == "MapCMAPolicy"
                          and model.SEMANTIC_MAP_ENCODER.trainable)
         with profiling.wall_range("train_step"), \
                 profiling.range_context("train_step"):
-            obs = {k: dev(v) for k, v in observations.items()}
-            loss, action_loss, aux_loss, rnn_out = train_step(
-                self.policy, self.optimizer, obs,
-                dev(prev_actions, torch.int64),
-                dev(np.asarray(not_done_masks).reshape(t, n), torch.float32),
-                dev(np.asarray(tour_not_done_masks).reshape(t, n),
-                    torch.float32),
-                dev(corrected_actions, torch.int64),
-                dev(weights, torch.float32),
-                rnn_states,
+            if step is train_step:  # the data-parallel step uploads shards
+                batch = [{k: dev(v) for k, v in observations.items()},
+                         *map(dev, batch[1:])]
+            loss, action_loss, aux_loss, rnn_out = step(
+                self.policy, self.optimizer, *batch, rnn_states,
                 model.PROGRESS_MONITOR.use, model.PROGRESS_MONITOR.alpha,
                 update_map_bn,
             )

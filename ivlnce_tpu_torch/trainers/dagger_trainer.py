@@ -318,11 +318,11 @@ def _record_step_obs(observation: Dict, features: Dict, batch: Dict, i: int,
 
 @registry.register_trainer(name="dagger")
 class DaggerTrainer(BaseVLNCETrainer):
-    def __init__(self, config, device=None):
+    def __init__(self, config, device=None, devices=None):
         self.lmdb_features_dir = config.IL.DAGGER.lmdb_features_dir.format(
             split=config.TASK_CONFIG.DATASET.SPLIT
         )
-        super().__init__(config, device)
+        super().__init__(config, device, devices)
         # collection steps over the trainer's collections (each launches
         # the mapper kernels once when a mapper transform is enabled)
         self.collection_steps = 0
@@ -607,13 +607,12 @@ class DaggerTrainer(BaseVLNCETrainer):
         self.losses.append((loss, action_loss, aux_loss))
 
     def _start_training(self):
-        """What a training run does before its first collection: refuse
-        what the port cannot do, check (``IL.DAGGER.preload_lmdb_features``)
-        or drop the store, add the expert sensor to the config, and build
-        the obs transforms, the policy and its optimizer. Returns the
-        run's config."""
+        """What a training run does before its first collection: check
+        (``IL.DAGGER.preload_lmdb_features``) or drop the store, add the
+        expert sensor to the config, build the obs transforms, the policy
+        and its optimizer, and resolve ``TPU.data_parallel_devices`` for
+        ``IL.batch_size`` lanes (logged). Returns the run's config."""
         config = self.config
-        self._check_training_options(config)
         if config.IL.DAGGER.preload_lmdb_features:
             with TrajectoryStore(self.lmdb_features_dir) as store:
                 if store.count() == 0:
@@ -634,6 +633,7 @@ class DaggerTrainer(BaseVLNCETrainer):
 
         self._setup_obs_transforms(config)
         self._initialize_training(config)
+        self._train_step_fn(config.IL.batch_size)
         os.makedirs(config.TENSORBOARD_DIR, exist_ok=True)
         return config
 
