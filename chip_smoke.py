@@ -117,7 +117,17 @@ Phases (any failure ends the run with a nonzero exit):
    the lead); (b) float32 updates through the trainer's
    ``_update_agent`` in turns, wall ms per train step and peak memory;
    (c) -1 and 4 resolve to the visible cards. ``--data-parallel`` runs
-   phase 17 alone on a seeded batch, 2-way and, with 4 cards, 4-way.
+   phase 17 alone on a seeded batch, 2-way and, with 4 cards, 4-way;
+18. Orbax checkpoint directories (the JAX trainer's
+   ``TPU.async_checkpointing`` save), read without orbax, tensorstore or
+   JAX: (a) the committed fixture (``ivlnce_tpu_torch/testdata/
+   orbax_small``, small MapCMA widths) through the port's reader, zstd by
+   the system's libzstd: every array's SHA-256 as orbax restored it, and
+   the read time per MB; (b) the iterative eval through ``run_exp`` from
+   it and from its pickle twin, one lane and one tour: identical actions,
+   equal stats, K1 and K2 once per policy step; (c) a warm start of
+   map_cma_train_tf.yaml from each (one epoch, two collected episodes):
+   equal first losses. ``--orbax`` runs phase 18 alone.
 
 Prints the kernels as one JSON line and, last, the device as JSON.
 Imports nothing of JAX.
@@ -1377,10 +1387,11 @@ def _step_stamps():
     return stamps, undo
 
 
-def one_tour_per_lane(tmp: str) -> tuple:
+def one_tour_per_lane(tmp: str, scenes=None) -> tuple:
     """Options that cut the val_seen split to the first tour of each scene
-    (one per lane), with the tour-nDTW ground truth of those tours under
-    their new numbers (a tour's id is its place in the tours file)."""
+    (one per lane), or of the first ``scenes`` scenes, with the tour-nDTW
+    ground truth of those tours under their new numbers (a tour's id is
+    its place in the tours file)."""
     from ivlnce_tpu_torch.config import get_config
 
     config = get_config(CONFIG)
@@ -1390,12 +1401,13 @@ def one_tour_per_lane(tmp: str) -> tuple:
     with open(config.EVAL.ITERATIVE_GT_PATHS) as f:
         gt = json.load(f)
     kept, kept_gt, first = {}, {}, 0
-    for scene, scene_tours in tours[split].items():
+    for scene, scene_tours in list(tours[split].items())[:scenes]:
         kept[scene] = scene_tours[:1]
         kept_gt[str(len(kept_gt))] = gt[split][str(first)]
         first += len(scene_tours)
-    paths = (os.path.join(tmp, "one_tour_per_lane.json"),
-             os.path.join(tmp, "one_tour_per_lane_gt.json"))
+    name = "one_tour_per_lane" if scenes is None else f"one_tour_{scenes}"
+    paths = (os.path.join(tmp, f"{name}.json"),
+             os.path.join(tmp, f"{name}_gt.json"))
     for path, data in zip(paths, ({split: kept}, {split: kept_gt})):
         with open(path, "w") as f:
             json.dump(data, f)
@@ -3263,6 +3275,214 @@ def phase_data_parallel(card: str, tmp: str, batch, ways: int = 2,
     return out
 
 
+# -- phase 18: Orbax checkpoint directories -----------------------------------
+def orbax_fixture() -> tuple:
+    """The committed JAX-written Orbax checkpoint
+    (``ivlnce_tpu_torch/testdata/orbax_small``, written by
+    ``tests/test_torch_orbax.py::write_small_fixture``): its directory and
+    ``fixture.json`` (widths, the pickle twin, each array's SHA-256 as
+    orbax restored it)."""
+    import ivlnce_tpu_torch
+
+    root = os.path.join(os.path.dirname(ivlnce_tpu_torch.__file__),
+                        "testdata", "orbax_small")
+    with open(os.path.join(root, "fixture.json")) as f:
+        return root, json.load(f)
+
+
+def _named_leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, path + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _named_leaves(v, path + (str(i),))
+    elif tree is not None:
+        yield ".".join(path), tree
+
+
+def phase_orbax_read(card: str, reads: int = 5) -> dict:
+    """Phase 18a: the fixture's tree through the port's reader (OCDBT,
+    zarr v2, zstd through the system's libzstd by ctypes) on the card's
+    host: every array's dtype, shape and SHA-256 as orbax restored it;
+    the read's wall time, first and median of ``reads``, per MB of
+    arrays."""
+    import hashlib
+
+    from ivlnce_tpu_torch.models import orbax_io
+    from ivlnce_tpu_torch.utils import zstd
+
+    root, fixture = orbax_fixture()
+    orbax = os.path.join(root, fixture["checkpoint"] + ".orbax")
+    lib = zstd.library()._name
+    seconds = []
+    for _ in range(reads):
+        t0 = time.perf_counter()
+        tree = orbax_io.load_orbax_tree(orbax)
+        seconds.append(time.perf_counter() - t0)
+    leaves = dict(_named_leaves(tree))
+    bad = [name for name, want in fixture["arrays"].items()
+           if name not in leaves
+           or str(leaves[name].dtype) != want["dtype"]
+           or list(leaves[name].shape) != want["shape"]
+           or hashlib.sha256(leaves[name].tobytes()).hexdigest()
+           != want["sha256"]]
+    if bad or set(leaves) != set(fixture["arrays"]):
+        raise SystemExit(f"Orbax fixture: {len(bad)} arrays differ from "
+                         f"orbax's restore: {bad[:5]}")
+    array_mb = sum(a.nbytes for a in leaves.values()) / 2**20
+    disk_mb = sum(os.path.getsize(os.path.join(d, f))
+                  for d, _, files in os.walk(orbax) for f in files) / 2**20
+    median = sorted(seconds)[len(seconds) // 2]
+    summary = {"arrays": len(leaves), "array_mb": array_mb,
+               "disk_mb": disk_mb, "zstd_library": lib,
+               "read_s": seconds, "first_ms_per_mb": seconds[0] * 1e3
+               / array_mb, "median_ms_per_mb": median * 1e3 / array_mb}
+    print(f"  {len(leaves)} arrays ({array_mb:.4f} MB; {disk_mb:.4f} MB on "
+          f"disk) equal orbax's restore by SHA-256; zstd through {lib}")
+    print(f"  orbax read [{card}]: first {seconds[0] * 1e3:.4f} ms, median "
+          f"of {reads} {median * 1e3:.4f} ms: "
+          f"{summary['median_ms_per_mb']:.4f} ms per MB of arrays")
+    return summary
+
+
+def phase_orbax_evals(card: str, tmp: str) -> dict:
+    """Phase 18b: the iterative eval through ``run_exp`` from the Orbax
+    fixture (``EVAL_CKPT_PATH_DIR`` its ``ckpt.0.pth``) and from its
+    pickle twin, at the fixture's widths, one lane and one tour: identical
+    actions at every step, equal stats, K1 and K2 once per policy step."""
+    from ivlnce_tpu_torch.ops import scatter as S
+    from ivlnce_tpu_torch.run import run_exp
+
+    root, fixture = orbax_fixture()
+    extra = (tuple(str(x) for x in fixture["opts"])
+             + one_tour_per_lane(tmp, scenes=1) + ("NUM_ENVIRONMENTS", "1"))
+    runs = {}
+    for kind, ckpt in (("orbax", fixture["checkpoint"]),
+                       ("pickle", fixture["pickle_twin"])):
+        run = f"orbax_eval_{kind}"
+        opts = eval_opts(tmp, run, os.path.join(root, ckpt), extra)
+        record, undo = _action_recorder()
+        S.launches.reset()
+        t0 = time.perf_counter()
+        try:
+            trainer = run_exp(CONFIG, "eval", opts, device="cuda")
+        finally:
+            undo()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: getattr(S.launches, k) for k in KERNELS}
+        steps = trainer.policy_steps
+        if launches != {"accumulate": steps, "rasterize": steps,
+                        "known_load": 0} or steps == 0:
+            raise SystemExit(f"{run}: launches {launches} for {steps} "
+                             "policy steps")
+        with open(os.path.join(tmp, run, "results",
+                               "iterative_stats_ckpt_0_val_seen.json")) as f:
+            stats = json.load(f)
+        runs[kind] = {"policy_steps": steps, "launches": launches,
+                      "lanes": trainer._num_rows, "actions": record,
+                      "stats": stats, "eval_seconds": trainer.eval_seconds,
+                      "run_exp_seconds": wall}
+    if runs["orbax"]["actions"] != runs["pickle"]["actions"]:
+        raise SystemExit("the Orbax checkpoint's actions differ from its "
+                         "pickle twin's")
+    if runs["orbax"]["stats"] != runs["pickle"]["stats"]:
+        raise SystemExit(f"stats differ: {runs['orbax']['stats']} vs "
+                         f"{runs['pickle']['stats']}")
+    if runs["orbax"]["lanes"] != 1:
+        raise SystemExit(f"{runs['orbax']['lanes']} lanes, not 1")
+    print(f"  [{card}] Orbax and pickle twin: "
+          f"{runs['orbax']['policy_steps']} policy steps of identical "
+          f"actions on 1 lane, K1 and K2 once per step, equal stats "
+          f"{runs['orbax']['stats']}; run_exp "
+          + ", ".join(f"{k} {v['run_exp_seconds']:.2f} s (loop "
+                      f"{v['eval_seconds']:.2f} s)" for k, v in runs.items()))
+    return runs
+
+
+def phase_orbax_warm_start(card: str, tmp: str) -> dict:
+    """Phase 18c: ``IL.load_from_ckpt`` from the Orbax fixture and from
+    its pickle twin: one epoch of configs/fake/map_cma_train_tf.yaml
+    through ``run_exp(..., "train")`` at the fixture's widths, two
+    collected episodes in one batch: equal first losses, K1 and K2 once
+    per collection step."""
+    from ivlnce_tpu_torch.ops import scatter as S
+    from ivlnce_tpu_torch.run import run_exp
+
+    root, fixture = orbax_fixture()
+    runs = {}
+    for kind, ckpt in (("orbax", fixture["checkpoint"]),
+                       ("pickle", fixture["pickle_twin"])):
+        run = f"orbax_warm_{kind}"
+        opts = train_opts(tmp, run) + [str(x) for x in fixture["opts"]] + [
+            "IL.epochs", "1", "IL.batch_size", "2",
+            "IL.DAGGER.update_size", "2", "IL.load_from_ckpt", "True",
+            "IL.ckpt_to_load", os.path.join(root, ckpt)]
+        S.launches.reset()
+        t0 = time.perf_counter()
+        trainer = run_exp(TRAIN_CONFIGS["train_map_cma"], "train", opts,
+                          device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: getattr(S.launches, k) for k in KERNELS}
+        steps = trainer.collection_steps
+        if launches != {"accumulate": steps, "rasterize": steps,
+                        "known_load": 0} or not trainer.losses:
+            raise SystemExit(f"{run}: launches {launches} for {steps} "
+                             f"collection steps, losses {trainer.losses}")
+        runs[kind] = {"losses": trainer.losses, "collection_steps": steps,
+                      "train_steps": trainer.train_steps,
+                      "launches": launches, "run_exp_seconds": wall,
+                      "run_seconds": trainer.run_seconds}
+    first = {k: v["losses"][0] for k, v in runs.items()}
+    if first["orbax"] != first["pickle"] or not all(
+            math.isfinite(x) for x in first["orbax"]):
+        raise SystemExit(f"first losses differ: {first}")
+    print(f"  [{card}] warm starts from the Orbax checkpoint and its pickle "
+          f"twin: first loss {first['orbax']} both, "
+          f"{runs['orbax']['collection_steps']} collection steps, "
+          f"{runs['orbax']['train_steps']} train step(s); run_exp "
+          + ", ".join(f"{k} {v['run_exp_seconds']:.2f} s (run "
+                      f"{v['run_seconds']:.2f} s)" for k, v in runs.items()))
+    return runs
+
+
+def phase_orbax(card: str, tmp: str) -> dict:
+    """Phase 18: a JAX-written Orbax checkpoint read, evaluated and warm
+    started from on the card."""
+    t0 = time.perf_counter()
+    out = {"read": phase_orbax_read(card),
+           "eval": phase_orbax_evals(card, tmp),
+           "warm_start": phase_orbax_warm_start(card, tmp)}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 18 took {out['seconds']:.2f} s")
+    return out
+
+
+def orbax_only() -> int:
+    """``chip_smoke.py --orbax``: phase 18 alone, after the kernels'
+    build (phase 2), as in the whole run."""
+    os.environ["IVLNCE_PHASE_TIMES"] = "1"
+    from ivlnce_tpu_torch.ops import kernels
+    from ivlnce_tpu_torch.utils.device import resolve_device
+
+    resolve_device("cuda")  # TF32 off
+    card = card_line()
+    print(card)
+    kernels.library()
+    print("phase 18: a JAX-written Orbax checkpoint: read, evaluated and "
+          "warm started from")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = phase_orbax(card, tmp)
+    print(json.dumps({"orbax": out}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def data_parallel_only() -> int:
     """``chip_smoke.py --data-parallel``: phase 17 alone on a seeded batch
     (T=30, N=4), 2-way and, with 4 cards, 4-way, over distinct cards where
@@ -3292,6 +3512,8 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--data-parallel"]:
         return data_parallel_only()
+    if sys.argv[1:] == ["--orbax"]:
+        return orbax_only()
     # the port reads the host-phase switch at import (phase 13c)
     os.environ["IVLNCE_PHASE_TIMES"] = "1"
     from ivlnce_tpu_torch.ops import kernels
@@ -3448,6 +3670,10 @@ def main() -> int:
         training["data_parallel"] = phase_data_parallel(
             card, tmp, dp_store_batch(training["train_map_cma"]["store"]))
 
+        print("phase 18: a JAX-written Orbax checkpoint: read, evaluated and "
+              "warm started from")
+        orbax = phase_orbax(card, tmp)
+
     # each kernel's launches come from the path that runs it
     kernel_path = {"accumulate": "iterative", "rasterize": "iterative",
                    "known_load": "known"}
@@ -3499,6 +3725,7 @@ def main() -> int:
     print(json.dumps({"end_to_end": e2e, "trace": traces,
                       "training": training,
                       "reference": reference, "bf16": bf16,
+                      "orbax": orbax,
                       "kernel_walks": walks_timed,
                       "known_load_timing": known_timed,
                       "seconds": time.perf_counter() - t_start}))

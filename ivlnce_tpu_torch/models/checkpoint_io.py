@@ -340,10 +340,18 @@ _BN_STATISTICS = ("running_mean", "running_var", "num_batches_tracked")
 
 
 def _adam_states(node, where: str = "optim_state") -> list:
-    """The ``ScaleByAdamState``s of an optax state read by
-    ``load_jax_pickle``: ``optax.adam``'s ``(ScaleByAdamState,
-    EmptyState)``, or ``multi_transform``'s labels, each a
-    ``MaskedState`` over that tuple. Anything else raises, naming it."""
+    """The Adam states, each as (count, mu, nu), of an optax state read by
+    ``load_jax_pickle`` or ``orbax_io.load_orbax_checkpoint``:
+    ``optax.adam``'s ``(ScaleByAdamState, EmptyState)``, or
+    ``multi_transform``'s labels, each a ``MaskedState`` over that tuple.
+    Orbax restores each state as a dict of its fields (``{"count", "mu",
+    "nu"}``, ``{"inner_states": ...}``, ``{"inner_state": ...}``), tuples
+    as lists, and ``EmptyState`` as ``None``. Anything else raises, naming
+    it."""
+    if node is None:
+        return []
+    if isinstance(node, dict) and set(node) == {"count", "mu", "nu"}:
+        return [(node["count"], node["mu"], node["nu"])]
     if isinstance(node, (tuple, list)):
         return [s for i, v in enumerate(node)
                 for s in _adam_states(v, f"{where}[{i}]")]
@@ -353,7 +361,7 @@ def _adam_states(node, where: str = "optim_state") -> list:
     name = type(node).__name__
     if isinstance(node, InertJaxObject):
         if name == "ScaleByAdamState":
-            return [node]
+            return [tuple(node.args)]
         if name in _OPTAX_EMPTY:
             return []
         if name in _OPTAX_CONTAINERS:
@@ -364,17 +372,19 @@ def _adam_states(node, where: str = "optim_state") -> list:
 
 def _unmasked(tree):
     """``tree`` without the ``MaskedNode`` leaves a masked optax state
-    holds for the parameters of another label."""
+    holds for the parameters of another label (``None`` once Orbax
+    restored them)."""
     if isinstance(tree, dict):
         return {k: _unmasked(v) for k, v in tree.items()
-                if type(v).__name__ != "MaskedNode"}
+                if v is not None and type(v).__name__ != "MaskedNode"}
     return tree
 
 
 def adam_state_from_optax(optim_state, optimizer: torch.optim.Adam,
                           policy: torch.nn.Module) -> None:
     """Resume the JAX trainer's optax Adam (``optax.adam``, or the
-    ``SEMANTIC_MAP_ENCODER.custom_lr`` ``multi_transform`` of two) in the
+    ``SEMANTIC_MAP_ENCODER.custom_lr`` ``multi_transform`` of two), from
+    its pickle or its Orbax directory, in the
     port's ``optimizer`` over ``policy``'s parameters: each parameter's
     ``exp_avg`` / ``exp_avg_sq`` are optax's ``mu`` / ``nu`` in the port's
     names and layout (``params_from_jax``, so convolution moments go HWIO
@@ -390,8 +400,7 @@ def adam_state_from_optax(optim_state, optimizer: torch.optim.Adam,
 
     params = dict(policy.named_parameters())
     moments: Dict[str, Dict[str, Any]] = {}
-    for adam in _adam_states(optim_state):
-        count, mu, nu = adam.args
+    for count, mu, nu in _adam_states(optim_state):
         exp_avg = params_from_jax(_unmasked(mu))
         exp_avg_sq = params_from_jax(_unmasked(nu))
         for name, m in exp_avg.items():

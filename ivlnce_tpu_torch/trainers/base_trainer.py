@@ -27,7 +27,7 @@ import threading
 import time
 import zipfile
 from collections import defaultdict
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +39,7 @@ from ivlnce_tpu_torch.mapping.obs_transforms import get_active_obs_transforms
 from ivlnce_tpu_torch.models import checkpoint_io as cio
 from ivlnce_tpu_torch.models.cma import progress_monitor_loss
 from ivlnce_tpu_torch.models.convert import params_from_jax
+from ivlnce_tpu_torch.models.orbax_io import load_orbax_checkpoint
 from ivlnce_tpu_torch.tasks.tour_ndtw import compute_tour_ndtw
 from ivlnce_tpu_torch.utils import batching, logging_util, profiling, viz
 from ivlnce_tpu_torch.utils.batching import batch_obs, extract_instruction_tokens
@@ -121,24 +122,42 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     dict whose ``state_dict`` is in the port's names (JAX
     base_trainer.py:296-326):
 
+    - an Orbax directory, ``path + ".orbax"`` or else ``path`` (the JAX
+      trainer's ``TPU.async_checkpointing`` save): its tree and the
+      ``.meta.json`` sidecar (``models/orbax_io.py``), the ``params``
+      through ``params_from_jax``, bfloat16 leaves widened to float32;
+      ``optim_state`` is optax's state as Orbax restores it, in dicts and
+      lists;
     - a zip file (``torch.save``): the port's own or a reference
       training checkpoint, which share the ``net.`` /
       ``action_distribution.`` layout;
-    - an Orbax directory (``path`` or ``path + ".orbax"``): raises;
     - anything else: a pickle of the JAX trainer, whose ``params`` tree
       goes through ``params_from_jax``; its optax ``optim_state`` comes
       back inert."""
-    if os.path.isdir(path) or os.path.isdir(path + ".orbax"):
-        raise NotImplementedError(
-            f"{path} is an Orbax checkpoint directory: reading it needs "
-            "orbax and tensorstore, which the PyTorch port does not use; "
-            "evaluate a pickle checkpoint (TPU.async_checkpointing False) "
-            "or a reference .pth instead"
-        )
-    if zipfile.is_zipfile(path):
+    orbax_dir = path + ".orbax" if os.path.isdir(path + ".orbax") else path
+    if os.path.isdir(orbax_dir):
+        ckpt = load_orbax_checkpoint(orbax_dir, bfloat16_as_float32=True)
+    elif zipfile.is_zipfile(path):
         return cio.load_reference_policy_checkpoint(path)
-    ckpt = cio.load_jax_pickle(path)
+    else:
+        ckpt = cio.load_jax_pickle(path)
     return {**ckpt, "state_dict": params_from_jax(ckpt["params"])}
+
+
+def checkpoints_in(folder: str) -> List[Tuple[int, str]]:
+    """The checkpoints of an ``EVAL_CKPT_PATH_DIR`` folder, as (index,
+    path) in index order: each ``ckpt.<index>.*`` entry, as the JAX
+    package lists them (base_trainer.py:775-795), but for the
+    ``ckpt.N.pth.meta.json`` beside a ``ckpt.N.pth.orbax``: that is the
+    Orbax checkpoint's sidecar, not a checkpoint."""
+    names = [f for f in os.listdir(folder) if f.startswith("ckpt.")]
+    sidecars = {f[:-len(".orbax")] + ".meta.json" for f in names
+                if f.endswith(".orbax")}
+    return sorted(
+        ((int(f.split(".")[1]), os.path.join(folder, f)) for f in names
+         if f not in sidecars),
+        key=lambda c: c[0],
+    )
 
 
 # -- the training step --------------------------------------------------------
@@ -359,9 +378,11 @@ class BaseVLNCETrainer:
     def _initialize_training(self, config) -> None:
         """The policy and its optimizer for training; with
         ``IL.load_from_ckpt`` the weights of ``IL.ckpt_to_load`` and, with
-        ``IL.is_requeue``, its optimizer state (the port's, or a JAX
-        pickle's optax Adam state: ``cio.adam_state_from_optax``), epoch
-        and step (JAX base_trainer.py:169-224). The modules stay in eval mode but for
+        ``IL.is_requeue``, its optimizer state (the port's, or the JAX
+        trainer's optax Adam state from its pickle or Orbax directory:
+        ``cio.adam_state_from_optax``), epoch and step (JAX
+        base_trainer.py:169-224; its own resume from an Orbax directory
+        fails, ROADMAP §3). The modules stay in eval mode but for
         the recurrent ones, which cuDNN's backward needs in train mode:
         BatchNorm is switched by the forward's ``training`` argument."""
         load = config.IL.load_from_ckpt
@@ -675,21 +696,15 @@ class BaseVLNCETrainer:
             self.config.TENSORBOARD_DIR, flush_secs=self.flush_secs
         ) as writer:
             ckpt_dir = self.config.EVAL_CKPT_PATH_DIR
-            if os.path.isfile(ckpt_dir):
+            # a file, or ckpt.N.pth naming its Orbax directory
+            if os.path.isfile(ckpt_dir) or os.path.isdir(ckpt_dir + ".orbax"):
                 ckpt_index = 0
                 with contextlib.suppress(ValueError, IndexError):
                     ckpt_index = int(ckpt_dir.split(".")[-2])
                 self._eval_checkpoint(ckpt_dir, writer, ckpt_index)
             else:
-                ckpts = sorted(
-                    (f for f in os.listdir(ckpt_dir) if f.startswith("ckpt.")),
-                    key=lambda f: int(f.split(".")[1]),
-                )
-                for f in ckpts:
-                    self._eval_checkpoint(
-                        os.path.join(ckpt_dir, f), writer,
-                        int(f.split(".")[1]),
-                    )
+                for index, path in checkpoints_in(ckpt_dir):
+                    self._eval_checkpoint(path, writer, index)
 
     def _setup_eval_config(self, checkpoint_config):
         """Merge a checkpoint's saved config under the eval config

@@ -19,6 +19,7 @@ rules, and the refusals (an Orbax directory, a pickled config class)."""
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import types
@@ -47,6 +48,7 @@ from ivlnce_tpu_torch.trainers.base_trainer import (
 from ivlnce_tpu_torch.utils.registry import registry
 from tests import test_policy_checkpoint_parity as ref
 from tests.test_models import TorchGNResNetEncoder
+from tests.test_torch_train import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_STACK = ("jax", "jaxlib", "optax", "flax", "orbax")
@@ -329,9 +331,15 @@ def test_merge_follows_the_jax_merge_rules():
 
 @pytest.mark.parametrize("layout", ["directory", "suffix"])
 def test_orbax_directories_raise_with_the_reason(tmp_path, layout):
+    """An Orbax directory (``path`` or ``path + ".orbax"``) that holds no
+    committed checkpoint raises, naming it and why; the port reads
+    committed ones (``tests/test_torch_orbax.py``)."""
     path = str(tmp_path / "ckpt.0.pth")
-    os.makedirs(path if layout == "directory" else path + ".orbax")
-    with pytest.raises(NotImplementedError, match="orbax and tensorstore"):
+    directory = path if layout == "directory" else path + ".orbax"
+    os.makedirs(directory)
+    with pytest.raises(ValueError, match=(
+            f"{re.escape(directory)} has no _CHECKPOINT_METADATA: not a "
+            "committed Orbax checkpoint")):
         load_checkpoint(path)
 
 

@@ -10,6 +10,7 @@ from ivlnce_tpu import native as jax_native
 from ivlnce_tpu.tasks import tour_ndtw as jnd
 from ivlnce_tpu_torch import native as torch_native
 from ivlnce_tpu_torch.tasks import tour_ndtw as tnd
+from tests.test_torch_train import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _tour_paths(seed):

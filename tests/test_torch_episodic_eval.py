@@ -36,13 +36,13 @@ from ivlnce_tpu_torch.models.convert import params_from_jax
 from ivlnce_tpu_torch.run import register_all
 from ivlnce_tpu_torch.utils import viz as torch_viz
 from ivlnce_tpu_torch.utils.registry import registry as torch_registry
-from tests.test_torch_eval import (  # noqa: F401 (a fixture)
+from tests.test_torch_eval import (
     CONFIG,
     _configure,
     _load,
     _tiny_dataset,
-    one_torch_thread,
 )
+from tests.test_torch_train import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EPISODIC = "configs/fake/map_cma_eval_episodic.yaml"

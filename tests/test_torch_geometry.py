@@ -15,6 +15,7 @@ import torch
 
 from ivlnce_tpu.ops import geometry as JG
 from ivlnce_tpu_torch.ops import geometry as TG
+from tests.test_torch_train import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _np(x):

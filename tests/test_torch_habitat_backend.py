@@ -27,6 +27,7 @@ from tests.test_habitat_trace_replay import (  # noqa: F401 (a fixture)
     _install_trace_habitat_sim,
     trace,
 )
+from tests.test_torch_train import one_torch_thread  # noqa: F401  (autouse)
 
 SIDES = {
     "jax": (jax_task, jax_env, jax_fake_sim, jax_backend),

@@ -1,4 +1,5 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, it
+"""The port stands alone: it imports neither JAX nor the JAX package (nor
+orbax, tensorstore or zstandard, which read Orbax checkpoints there), it
 refuses to fall back to the CPU when a card was asked for, and its kernel
 wrappers take the plain PyTorch version only for CPU tensors."""
 
@@ -18,10 +19,12 @@ from ivlnce_tpu_torch.ops import geometry as G
 from ivlnce_tpu_torch.ops import kernels
 from ivlnce_tpu_torch.ops import scatter as S
 from ivlnce_tpu_torch.utils.device import resolve_device
+from tests.test_torch_train import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "ivlnce_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "flax", "ivlnce_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "flax", "tensorstore",
+             "zstandard", "ivlnce_tpu")
 
 
 def _port_modules():

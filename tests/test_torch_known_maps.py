@@ -27,12 +27,12 @@ from ivlnce_tpu_torch.mapping import obs_transforms as TOT
 from ivlnce_tpu_torch.mapping.camera import CameraParameters as TCamera
 from ivlnce_tpu_torch.ops import scatter as TS
 from ivlnce_tpu_torch.ops.geometry import MapDims as TDims
-from tests.test_torch_eval import (  # noqa: F401 (a fixture)
+from tests.test_torch_eval import (
     _configure,
     _load,
     _tiny_dataset,
-    one_torch_thread,
 )
+from tests.test_torch_train import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KNOWN = "configs/fake/map_cma_eval_known.yaml"

@@ -20,6 +20,7 @@ from ivlnce_tpu_torch.models.convert import params_from_jax
 from ivlnce_tpu_torch.models.policy import LatentCMAPolicy as TorchPolicy
 from ivlnce_tpu_torch.models.policy import sample_actions
 from ivlnce_tpu_torch.models.resnet import TorchVisionResNetSpatial
+from tests.test_torch_train import one_torch_thread  # noqa: F401  (autouse)
 
 CONFIG = "configs/fake/map_cma_eval_iterative.yaml"
 HIDDEN = 64

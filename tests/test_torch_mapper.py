@@ -20,6 +20,7 @@ from ivlnce_tpu.ops import scatter as JS
 from ivlnce_tpu_torch.mapping import mapper as TM
 from ivlnce_tpu_torch.mapping.camera import CameraParameters as TCamera
 from ivlnce_tpu_torch.ops import scatter as TS
+from tests.test_torch_train import one_torch_thread  # noqa: F401  (autouse)
 
 
 def make_params(hw=16, grid=512, window=192, map_m=6.4, vfov_deg=79.0,

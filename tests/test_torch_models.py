@@ -23,6 +23,7 @@ from ivlnce_tpu_torch.models import nn as TNN
 from ivlnce_tpu_torch.models import rnn as TR
 from ivlnce_tpu_torch.models.convert import params_from_jax
 from ivlnce_tpu_torch.models.policy import MapCMAPolicy as TorchPolicy
+from tests.test_torch_train import one_torch_thread  # noqa: F401  (autouse)
 
 CONFIG = "configs/fake/map_cma_eval_iterative.yaml"
 HIDDEN = 64

@@ -14,6 +14,7 @@ from ivlnce_tpu.models.policy import MapCMAPolicy as JaxPolicy
 from ivlnce_tpu_torch.config import get_config as torch_config
 from ivlnce_tpu_torch.models.convert import params_from_jax
 from ivlnce_tpu_torch.models.policy import MapCMAPolicy as TorchPolicy
+from tests.test_torch_train import one_torch_thread  # noqa: F401  (autouse)
 
 CONFIG = "configs/fake/map_cma_eval_iterative.yaml"
 HIDDEN = 64

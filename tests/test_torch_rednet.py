@@ -26,6 +26,7 @@ from ivlnce_tpu_torch.models import rednet as TR
 from ivlnce_tpu_torch.models.convert import rednet_params_from_jax
 from ivlnce_tpu_torch.ops.geometry import MapDims as TDims
 from tests.test_torch_known_maps import make_params, make_transforms
+from tests.test_torch_train import one_torch_thread  # noqa: F401  (autouse)
 
 MARGIN = 1e-4
 

@@ -35,6 +35,7 @@ from ivlnce_tpu_torch.models.convert import params_from_jax
 from ivlnce_tpu_torch.trainers import base_trainer as tbt
 from ivlnce_tpu_torch.utils.registry import registry as torch_registry
 from tests.test_torch_train import ADAM_RTOL, MAP_CONFIG, _opts, _pair
+from tests.test_torch_train import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -11,6 +11,7 @@ import torch
 
 from ivlnce_tpu.ops import scatter as J
 from ivlnce_tpu_torch.ops import scatter as S
+from tests.test_torch_train import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _t(*arrays):

@@ -25,6 +25,7 @@ from ivlnce_tpu_torch.mapping import walks
 from ivlnce_tpu_torch.mapping.camera import CameraParameters as TCamera
 from ivlnce_tpu_torch.ops import geometry as TG
 from ivlnce_tpu_torch.ops import scatter as TS
+from tests.test_torch_train import one_torch_thread  # noqa: F401  (autouse)
 
 HW, GRID, WINDOW, MAP_M, STEPS = 32, 256, 100, 3.2, 8
 

@@ -26,6 +26,7 @@ from ivlnce_tpu_torch.tasks import maps as torch_maps
 from ivlnce_tpu_torch.tasks import measures as torch_measures
 from ivlnce_tpu_torch.utils import profiling
 from ivlnce_tpu_torch.utils import viz as torch_viz
+from tests.test_torch_train import one_torch_thread  # noqa: F401  (autouse)
 
 SIDES = {
     "jax": (jax_task, JaxFakeSim, jax_measures, jax_viz),
