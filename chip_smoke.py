@@ -34,7 +34,8 @@ Phases (any failure ends the run with a nonzero exit):
    (configs/fake/map_cma_eval_iterative.yaml, seeded random weights),
    with the kernels' launch counters set to 0 before and read after;
 7. the same evaluation again, over one tour per lane, with a window of
-   policy steps traced by ``torch.profiler``: the device time of each
+   policy steps traced by ``torch.profiler`` and the eval stopped at its
+   end (as in every traced eval below): the device time of each
    named range of the step (mapper, semantics, encoders, GRU +
    attention, instruction encoder) and the card's busy share;
 8. the known-map evaluation (configs/fake/map_cma_eval_known.yaml, K3 and
@@ -127,7 +128,21 @@ Phases (any failure ends the run with a nonzero exit):
    it and from its pickle twin, one lane and one tour: identical actions,
    equal stats, K1 and K2 once per policy step; (c) a warm start of
    map_cma_train_tf.yaml from each (one epoch, two collected episodes):
-   equal first losses. ``--orbax`` runs phase 18 alone.
+   equal first losses. ``--orbax`` runs phase 18 alone;
+19. the tensor-parallel ``model`` axis (``parallel/tensor.py``) at full
+   width: (a) one float64 MapCMA update on phase 17's batch over
+   (data, model) = (1, 2) and (2, 2), every device cuda:0, against the
+   one-device update (loss terms, gathered gradients, updated weights,
+   Adam moments, map BatchNorm statistics, RNN states at 17a's limits);
+   (b) ``dryrun_multichip(4)`` on cuda:0 listed four times: its loss
+   parity, K1 and K2 launched once per data row by its fused act (the
+   counters set to 0 just before), its actions equal to the same act on
+   one device; (c) float32 updates through ``_update_agent``, one device,
+   (1, 2) and (2, 2) in turns: wall ms per train step, peak memory.
+   ``--data-parallel`` adds phase 19 after phase 17: with four cards 19a
+   and 19c over cuda:0..3 as (2, 2) and (1, 4), and 19b over cuda:0..3
+   (row 1's K1 and K2 on cuda:2); ``--model-axis`` runs phase 19 alone
+   on a seeded batch.
 
 Prints the kernels as one JSON line and, last, the device as JSON.
 Imports nothing of JAX.
@@ -1670,12 +1685,18 @@ def latent_encoder_flops() -> dict:
     return flops
 
 
+class TraceWindowDone(Exception):
+    """Ends a traced eval at the policy step that closes the profiler's
+    window: the steps after it are not recorded."""
+
+
 def phase_trace(card: str, tmp: str, ckpt: str, wall_ms_per_step: float,
                 path: str, extra_opts=()) -> dict:
     """The path's eval again (with ``extra_opts``: one tour per lane, which
     holds enough policy steps for the window), with ``torch.profiler``
     recording policy steps TRACE_SKIP + 5 to TRACE_SKIP + 5 +
-    TRACE_STEPS. Device time per
+    TRACE_STEPS; the eval stops there (FakeSim's lanes run in this
+    process, so nothing is left running). Device time per
     ``record_function`` range of the trainer and policy, per policy step;
     the busy share sets device time per policy step against the untraced
     run's wall time per policy step (the profiler slows the host, not the
@@ -1694,10 +1715,16 @@ def phase_trace(card: str, tmp: str, ckpt: str, wall_ms_per_step: float,
         on_trace_ready=lambda p: p.export_chrome_trace(trace_path),
     )
     policy_step = BaseVLNCETrainer._policy_step
+    window_end = TRACE_SKIP + 5 + TRACE_STEPS
+    steps = 0
 
     def stepped(self, *args, **kwargs):
+        nonlocal steps
         out = policy_step(self, *args, **kwargs)
-        prof.step()
+        prof.step()  # writes the trace at the window's last step
+        steps += 1
+        if steps == window_end:
+            raise TraceWindowDone
         return out
 
     BaseVLNCETrainer._policy_step = stepped
@@ -1707,8 +1734,13 @@ def phase_trace(card: str, tmp: str, ckpt: str, wall_ms_per_step: float,
                     eval_opts(tmp, f"{path}_trace", ckpt,
                               tuple(extra) + tuple(extra_opts)),
                     device="cuda")
+    except TraceWindowDone:
+        pass
     finally:
         BaseVLNCETrainer._policy_step = policy_step
+    if steps < window_end:
+        raise SystemExit(f"{path}: the traced eval ended after {steps} "
+                         f"policy steps, before the window's {window_end}")
     t0 = time.perf_counter()
     with open(trace_path) as f:
         got = attribute_device_time(json.load(f))
@@ -2083,6 +2115,7 @@ def _training_policy(config, dtype, device):
     """The MapCMA policy at the config's widths, weights from ``SEED``,
     modules as the trainer sets them (recurrent ones in train mode)."""
     from ivlnce_tpu_torch.models.policy import MapCMAPolicy
+    from ivlnce_tpu_torch.trainers.base_trainer import train_mode
 
     mapper = config.RL.POLICY.OBS_TRANSFORMS.EGOCENTRIC_MAPPER
     info = {"depth_hw": config.TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.HEIGHT,
@@ -2091,11 +2124,7 @@ def _training_policy(config, dtype, device):
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(SEED)
         policy = MapCMAPolicy.from_config(config, info)
-    policy = policy.to(device=device, dtype=dtype).eval()
-    for module in policy.modules():
-        if isinstance(module, torch.nn.RNNBase):
-            module.train()
-    return policy
+    return train_mode(policy.to(device=device, dtype=dtype))
 
 
 def _train_grads(policy, batch, dtype, device):
@@ -2978,6 +3007,8 @@ def phase_bf16(card: str, tmp: str, ckpts: dict, one_tour, e2e: dict,
 DP_LANES = 4
 # rounds of each layout, taken in turns (1, k, k, 1), and steps per round
 DP_ROUNDS, DP_STEPS = 2, 5
+# phase 19c's steps per round: each layout's round (1, a, b, b, a, 1)
+MP_STEPS = 3
 # the parameter names whose gradient is 0 in exact arithmetic (14b's)
 VANISHING = ("net.text_k.bias",) + tuple(
     f"net.map_encoder.cnn.{i}.conv.0.bias" for i in range(4))
@@ -3032,10 +3063,12 @@ def dp_seeded_batch(t: int, n: int) -> tuple:
             weights)
 
 
-def _dp_update(policy, config, batch, devices, dtype):
-    """One update of ``policy`` (in place) on ``batch`` in ``dtype``:
-    ``train_step`` on one device, else the data-parallel step over
-    ``devices``. Returns (loss terms, final RNN states, the step)."""
+def _mesh_update(policy, config, batch, dtype, mesh=None):
+    """One update of ``policy`` on ``batch`` in ``dtype``: ``train_step``
+    on its device without a ``mesh``, else the mesh's step, the policy
+    split over the mesh's row 0 first when the mesh has a ``model`` axis.
+    Returns the loss terms, the final RNN states, the updated policy (the
+    split copy, or ``policy`` itself), the step and the optimizer."""
     from ivlnce_tpu_torch import parallel
     from ivlnce_tpu_torch.trainers.base_trainer import (
         make_optimizer,
@@ -3050,105 +3083,183 @@ def _dp_update(policy, config, batch, devices, dtype):
     masks = masks.reshape(t, n).astype(fdt)
     args = [obs, prev.astype(np.int64), masks, masks,
             corrected.astype(np.int64), weights.astype(fdt)]
-    lead = devices[0]
-    if len(devices) == 1:
+    lead = next(policy.parameters()).device
+    if mesh is None:
         step = train_step
         args = [{k: torch.from_numpy(v).to(lead) for k, v in obs.items()},
                 *(torch.from_numpy(a).to(lead) for a in args[1:])]
     else:
-        step = parallel.sharded_train_step(
-            parallel.make_mesh(devices=devices))
+        step = parallel.sharded_train_step(mesh)
+        if mesh.shape["model"] > 1:
+            policy = parallel.shard_policy(policy, mesh)
     cfg = config.MODEL.PROGRESS_MONITOR
     rnn = policy.initial_rnn_states(n, lead).to(dtype)
-    *terms, rnn_out = step(policy, make_optimizer(policy, config), *args,
-                           rnn, cfg.use, cfg.alpha, True)
-    return [float(x) for x in terms], rnn_out, step
+    optimizer = make_optimizer(policy, config)
+    *terms, rnn_out = step(policy, optimizer, *args, rnn, cfg.use,
+                           cfg.alpha, True)
+    return [float(x) for x in terms], rnn_out, policy, step, optimizer
 
 
-def dp_check(card: str, batch, devices) -> dict:
-    """Phase 17a: one float64 update over ``devices`` against the same
-    update on one device (``train_step``), from the same seeded weights:
-    loss terms within TRAIN_LOSS_RTOL, the final RNN states and every
-    gradient and updated weight within TRAIN_GRAD_TOL of the one-device
+def _update_record(terms, rnn, policy, optimizer) -> dict:
+    """An update's results under the one-device names, whole tensors on
+    the lead: loss terms, RNN states, gradients, weights and buffers, Adam
+    moments."""
+    from ivlnce_tpu_torch import parallel
+
+    moments = {}
+    for m in ("exp_avg", "exp_avg_sq"):
+        moments.update({f"{k} {m}": v for k, v in parallel.gathered(
+            policy, lambda p: optimizer.state[p][m]
+            if p in optimizer.state else None).items()})
+    return {"terms": terms, "rnn": rnn,
+            "grads": parallel.gathered(policy, lambda p: p.grad),
+            "state": parallel.gathered_state_dict(policy),
+            "moments": moments}
+
+
+def compare_updates(got: dict, want: dict) -> tuple:
+    """``got`` against the one-device ``want`` (``_update_record``'s):
+    the worst errors and the failures at phase 17a's limits: loss terms
+    within TRAIN_LOSS_RTOL, the final RNN states, every gradient, updated
+    weight and Adam moment within TRAIN_GRAD_TOL of the one-device
     tensor's largest |value| (the VANISHING gradients, rounding noise,
-    within TRAIN_NOISE_TOL of the largest gradient), the map BatchNorm
-    statistics within TRAIN_BN_TOL; every replica's weights and buffers
-    equal to the lead's. In float64, because Adam's first step is
-    lr * sign(g): float32 noise in a gradient near 0 would move a weight
-    by 2 lr between two correct runs."""
-    from ivlnce_tpu_torch.config import get_config
+    within TRAIN_NOISE_TOL of the largest gradient; their moments are not
+    compared, being that noise's), the map BatchNorm statistics within
+    TRAIN_BN_TOL."""
+    err = {"loss_rel_err": max(abs(a - b) / abs(b) for a, b in
+                               zip(got["terms"], want["terms"]) if b),
+           "rnn_err": float((got["rnn"] - want["rnn"]).abs().max()
+                            / want["rnn"].abs().max()),
+           "grad_err": 0.0, "vanishing_noise": 0.0, "weight_err": 0.0,
+           "moment_err": 0.0, "map_bn_err": 0.0}
+    failed = []
+    if got["grads"].keys() != want["grads"].keys():
+        failed.append(("gradients held on one side only",
+                       sorted(got["grads"].keys() ^ want["grads"].keys())))
+    largest = max(float(g.abs().max()) for g in want["grads"].values())
 
-    config = get_config(TRAIN_CONFIGS["train_map_cma"])
-    ref = _training_policy(config, torch.float64, devices[0])
-    got = _training_policy(config, torch.float64, devices[0])
-    t0 = time.perf_counter()
-    want_terms, want_rnn, _ = _dp_update(ref, config, batch, devices[:1],
-                                         torch.float64)
-    terms, rnn, step = _dp_update(got, config, batch, devices,
-                                  torch.float64)
-    seconds = time.perf_counter() - t0
-    loss_err = max(abs(a - b) / abs(b) for a, b in zip(terms, want_terms)
-                   if b)
-    rnn_err = float((rnn - want_rnn).abs().max() / want_rnn.abs().max())
-    largest = max(float(p.grad.abs().max()) for p in ref.parameters()
-                  if p.grad is not None)
-    grads = dict(got.named_parameters())
-    grad_err, noise, failed = 0.0, 0.0, []
-    for name, p in ref.named_parameters():
-        if (p.grad is None) != (grads[name].grad is None):
-            failed.append((name, "gradient held on one side only"))
-        elif p.grad is None:
+    def rel(a, b):
+        scale = float(b.abs().max())
+        diff = float((a.to(b.device) - b).abs().max())
+        return diff / scale if scale else diff
+
+    for name, g in want["grads"].items():
+        if name not in got["grads"]:
             continue
-        elif name in VANISHING:
-            ratio = max(float(p.grad.abs().max()),
-                        float(grads[name].grad.abs().max())) / largest
-            noise = max(noise, ratio)
-            if ratio > TRAIN_NOISE_TOL:
-                failed.append((name, ratio))
+        if name in VANISHING:
+            ratio = max(float(g.abs().max()),
+                        float(got["grads"][name].abs().max())) / largest
+            key, tol = "vanishing_noise", TRAIN_NOISE_TOL
         else:
-            ratio = float((grads[name].grad - p.grad).abs().max()
-                          / p.grad.abs().max())
-            grad_err = max(grad_err, ratio)
-            if ratio > TRAIN_GRAD_TOL:
-                failed.append((name, ratio))
-    state, want = got.state_dict(), ref.state_dict()
-    bn_err = weight_err = 0.0
-    for k, v in want.items():
+            ratio, key, tol = rel(got["grads"][name], g), "grad_err", \
+                TRAIN_GRAD_TOL
+        err[key] = max(err[key], ratio)
+        if ratio > tol:
+            failed.append((name, ratio))
+    for name, v in want["moments"].items():
+        if name.split()[0] in VANISHING:
+            continue
+        ratio = rel(got["moments"][name], v)
+        err["moment_err"] = max(err["moment_err"], ratio)
+        if ratio > TRAIN_GRAD_TOL:
+            failed.append((name, ratio))
+    for k, v in want["state"].items():
         if not v.is_floating_point():
             continue
         if k.startswith("net.map_encoder.") and k.endswith(
                 ("running_mean", "running_var")):
-            bn_err = max(bn_err, float(((state[k] - v).abs()
-                                        / (1 + v.abs())).max()))
+            err["map_bn_err"] = max(err["map_bn_err"], float(
+                ((got["state"][k].to(v.device) - v).abs()
+                 / (1 + v.abs())).max()))
         else:
-            scale = float(v.abs().max())
-            err = float((state[k] - v).abs().max())
-            weight_err = max(weight_err, err / scale if scale else err)
-    replicas = getattr(step, "replicas", {})
-    for device, replica in replicas.items():
+            err["weight_err"] = max(err["weight_err"],
+                                    rel(got["state"][k], v))
+    if (err["loss_rel_err"] > TRAIN_LOSS_RTOL
+            or err["rnn_err"] > TRAIN_GRAD_TOL
+            or err["weight_err"] > TRAIN_GRAD_TOL
+            or err["map_bn_err"] > TRAIN_BN_TOL):
+        failed.append(("limits", err))
+    return err, failed
+
+
+def dp_check(card: str, batch, devices) -> dict:
+    """Phase 17a: one float64 update over ``devices`` against the same
+    update on one device (``train_step``), from the same seeded weights,
+    at ``compare_updates``' limits; every replica's weights and buffers
+    equal to the lead's. In float64, because Adam's first step is
+    lr * sign(g): float32 noise in a gradient near 0 would move a weight
+    by 2 lr between two correct runs."""
+    from ivlnce_tpu_torch import parallel
+    from ivlnce_tpu_torch.config import get_config
+
+    config = get_config(TRAIN_CONFIGS["train_map_cma"])
+    t0 = time.perf_counter()
+    want_terms, want_rnn, ref, _, ref_optimizer = _mesh_update(
+        _training_policy(config, torch.float64, devices[0]), config, batch,
+        torch.float64)
+    want = _update_record(want_terms, want_rnn, ref, ref_optimizer)
+    terms, rnn, got, step, optimizer = _mesh_update(
+        _training_policy(config, torch.float64, devices[0]), config, batch,
+        torch.float64, parallel.make_mesh(devices=devices))
+    err, failed = compare_updates(
+        _update_record(terms, rnn, got, optimizer), want)
+    seconds = time.perf_counter() - t0
+    state = got.state_dict()
+    replicas = [row[0] for row in step.replicas]
+    for row, replica in step.replicas.items():
         theirs = replica.state_dict()
         for k, v in state.items():
             if not torch.equal(theirs[k].to(v.device), v):
-                failed.append((f"{device} replica", k))
+                failed.append((f"{row[0]} replica", k))
     summary = {"card": card, "devices": [str(d) for d in devices],
                "replicas": [str(d) for d in replicas], "T": batch[3].shape[0],
                "N": batch[3].shape[1], "loss_terms": terms,
-               "loss_terms_one_device": want_terms, "loss_rel_err": loss_err,
-               "rnn_err": rnn_err, "grad_err": grad_err,
-               "vanishing_noise": noise, "weight_err": weight_err,
-               "map_bn_err": bn_err, "seconds": seconds}
+               "loss_terms_one_device": want["terms"], **err,
+               "seconds": seconds}
     print(f"  17a [{card}] float64, {len(devices)}-way over "
           f"{summary['devices']} (replicas on {summary['replicas']}) vs one "
           f"device, T={summary['T']} N={summary['N']}: loss terms {terms} vs "
-          f"{want_terms} (worst relative {loss_err:.3e}); RNN states "
-          f"{rnn_err:.3e}; gradients {grad_err:.3e} (vanishing ones "
-          f"{noise:.3e} of the largest); updated weights {weight_err:.3e}; "
-          f"map BatchNorm statistics {bn_err:.3e}; {seconds:.2f} s")
-    if (loss_err > TRAIN_LOSS_RTOL or rnn_err > TRAIN_GRAD_TOL or failed
-            or weight_err > TRAIN_GRAD_TOL or bn_err > TRAIN_BN_TOL):
+          f"{want['terms']} (worst relative {err['loss_rel_err']:.3e}); RNN "
+          f"states {err['rnn_err']:.3e}; gradients {err['grad_err']:.3e} "
+          f"(vanishing ones {err['vanishing_noise']:.3e} of the largest); "
+          f"updated weights {err['weight_err']:.3e}; Adam moments "
+          f"{err['moment_err']:.3e}; map BatchNorm statistics "
+          f"{err['map_bn_err']:.3e}; {seconds:.2f} s")
+    if failed:
         raise SystemExit(f"the {len(devices)}-way update disagrees with the "
                          f"one-device update: {summary}, {failed[:8]}")
     return summary
+
+
+def _timed_rounds(updates: dict, order: list, devices, batch,
+                  steps: int = DP_STEPS) -> tuple:
+    """Rounds of ``steps`` calls ``updates[key](*batch)``, one round per
+    key of ``order`` in turn: wall ms per call of each round (host clock
+    over calls that end in the losses' copy to the host, every card
+    synchronised) and the peak and resident memory of each key on each
+    card of ``devices``."""
+    used = sorted({torch.device(d).index or 0 for d in devices
+                   if torch.device(d).type == "cuda"})
+    ms = {key: [] for key in updates}
+    peak = {key: {} for key in updates}
+    for key in order:
+        for i in used:
+            torch.cuda.reset_peak_memory_stats(i)
+        resident = {i: torch.cuda.memory_allocated(i) for i in used}
+        for i in used:
+            torch.cuda.synchronize(i)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            updates[key](*batch)
+        for i in used:
+            torch.cuda.synchronize(i)
+        ms[key].append((time.perf_counter() - t0) * 1e3 / steps)
+        for i in used:
+            p = peak[key].setdefault(f"cuda:{i}", {"peak_bytes": 0})
+            p["peak_bytes"] = max(p["peak_bytes"],
+                                  torch.cuda.max_memory_allocated(i))
+            p["resident_bytes"] = resident[i]
+    return ms, peak
 
 
 def dp_timing(card: str, tmp: str, batch, devices) -> dict:
@@ -3178,27 +3289,9 @@ def dp_timing(card: str, tmp: str, batch, devices) -> dict:
     first = {w: tr._update_agent(*batch)[:3] for w, tr in trainers.items()}
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(first[k], first[1])
                    if b)
-    used = sorted({torch.device(d).index or 0 for d in devices
-                   if torch.device(d).type == "cuda"})
-    ms = {1: [], k: []}
-    peak = {1: {}, k: {}}
-    for ways in [1, k, k, 1][: 2 * DP_ROUNDS]:
-        for i in used:
-            torch.cuda.reset_peak_memory_stats(i)
-        resident = {i: torch.cuda.memory_allocated(i) for i in used}
-        for i in used:
-            torch.cuda.synchronize(i)
-        t0 = time.perf_counter()
-        for _ in range(DP_STEPS):
-            trainers[ways]._update_agent(*batch)
-        for i in used:
-            torch.cuda.synchronize(i)
-        ms[ways].append((time.perf_counter() - t0) * 1e3 / DP_STEPS)
-        for i in used:
-            p = peak[ways].setdefault(f"cuda:{i}", {"peak_bytes": 0})
-            p["peak_bytes"] = max(p["peak_bytes"],
-                                  torch.cuda.max_memory_allocated(i))
-            p["resident_bytes"] = resident[i]
+    ms, peak = _timed_rounds(
+        {w: tr._update_agent for w, tr in trainers.items()},
+        [1, k, k, 1][: 2 * DP_ROUNDS], devices, batch)
     steps = {w: type(tr._train_steps[w]).__name__
              for w, tr in trainers.items()}
     summary = {"card": card, "devices": [str(d) for d in devices],
@@ -3272,6 +3365,199 @@ def phase_data_parallel(card: str, tmp: str, batch, ways: int = 2,
     out["launches"] = launches
     out["seconds"] = time.perf_counter() - t0
     print(f"  phase 17 ({ways}-way) took {out['seconds']:.2f} s")
+    return out
+
+
+# -- phase 19: the tensor-parallel model axis --------------------------------
+def _layout(data: int, model: int, devices):
+    from ivlnce_tpu_torch import parallel
+
+    return parallel.make_mesh(data * model, model_parallel=model,
+                              devices=devices)
+
+
+def mp_layouts(devices=None) -> tuple:
+    """Phase 19's devices and (data, model) layouts: (2, 2) and (1, 4)
+    over cuda:0..3 with four cards, else (1, 2) and (2, 2) over cuda:0
+    listed four times (or over the ``devices`` given)."""
+    if devices is not None:
+        return list(devices), ((1, 2), (2, 2))
+    if torch.cuda.device_count() >= 4:
+        return [f"cuda:{i}" for i in range(4)], ((2, 2), (1, 4))
+    return ["cuda:0"] * 4, ((1, 2), (2, 2))
+
+
+def mp_check(card: str, batch, devices, layouts) -> dict:
+    """Phase 19a: one float64 update over each (data, model) layout
+    against the same update on one device, from the same seeded weights,
+    at ``compare_updates``' limits, every tensor gathered whole under its
+    one-device name (``parallel.gathered``); each other row's copy equal
+    to row 0's."""
+    from ivlnce_tpu_torch import parallel
+    from ivlnce_tpu_torch.config import get_config
+
+    config = get_config(TRAIN_CONFIGS["train_map_cma"])
+    t0 = time.perf_counter()
+    want_terms, want_rnn, ref, _, ref_optimizer = _mesh_update(
+        _training_policy(config, torch.float64, devices[0]), config, batch,
+        torch.float64)
+    want = _update_record(want_terms, want_rnn, ref, ref_optimizer)
+    out = {}
+    for data, model in layouts:
+        mesh = _layout(data, model, devices)
+        t1 = time.perf_counter()
+        terms, rnn, got, step, optimizer = _mesh_update(
+            _training_policy(config, torch.float64, devices[0]), config,
+            batch, torch.float64, mesh)
+        err, failed = compare_updates(
+            _update_record(terms, rnn, got, optimizer), want)
+        state = parallel.gathered_state_dict(got)
+        for row, replica in step.replicas.items():
+            for k, v in parallel.gathered_state_dict(replica).items():
+                if not torch.equal(v.to(state[k].device), state[k]):
+                    failed.append((f"row {row} copy", k))
+        rule = parallel.param_shardings(ref.state_dict(), mesh)
+        split = sum(a is not None for a in rule.values())
+        label = f"{data}x{model}"
+        out[label] = {"grid": [[str(d) for d in row] for row in mesh.grid],
+                      "copies": [[str(d) for d in row]
+                                 for row in step.replicas],
+                      "split_tensors": split, "loss_terms": terms, **err,
+                      "seconds": time.perf_counter() - t1}
+        print(f"  19a [{card}] float64, (data, model) = ({data}, {model}) "
+              f"over {out[label]['grid']} (copies on "
+              f"{out[label]['copies']}), {split} tensors split, vs one "
+              f"device, T={batch[3].shape[0]} N={batch[3].shape[1]}: loss "
+              f"terms {terms} vs {want_terms} (worst relative "
+              f"{err['loss_rel_err']:.3e}); RNN states {err['rnn_err']:.3e}; "
+              f"gradients {err['grad_err']:.3e} (vanishing ones "
+              f"{err['vanishing_noise']:.3e} of the largest); updated "
+              f"weights {err['weight_err']:.3e}; Adam moments "
+              f"{err['moment_err']:.3e}; map BatchNorm statistics "
+              f"{err['map_bn_err']:.3e}; {out[label]['seconds']:.2f} s")
+        if failed or not split:
+            raise SystemExit(f"phase 19a: ({data}, {model}) disagrees with "
+                             f"one device: {out[label]}, {failed[:8]}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def mp_dryrun(card: str, devices) -> dict:
+    """Phase 19b: ``dryrun_multichip(4)`` on ``devices`` (cuda:0 listed
+    four times on one card; cuda:0..3 on four, where row 1's K1 and K2
+    run on cuda:2): its loss parity; K1 and K2 launched once per data row
+    (one act step), counted from 0 around it; then the same fused act on
+    the mesh's lead alone with the stepped weights gathered: equal
+    actions, logits within TRAIN_GRAD_TOL of their largest |value|."""
+    from ivlnce_tpu_torch import parallel
+    from ivlnce_tpu_torch.ops import scatter as S
+    from ivlnce_tpu_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    S.launches.reset()
+    out = dryrun.dryrun_multichip(4, devices)
+    launches = {k: getattr(S.launches, k) for k in KERNELS}
+    rows = out["mesh"]["data"]
+    mesh = out["mesh_obj"]
+    policy = dryrun.make_policy()
+    policy.load_state_dict(parallel.gathered_state_dict(
+        out["copies"][mesh.grid[0]]))
+    one = parallel.make_mesh(devices=[mesh.lead])
+    actions, logits = dryrun.fused_act(
+        one, {one.grid[0]: policy.to(mesh.lead).eval()}, out["inputs"])
+    logits_err = float((out["logits"] - logits).abs().max()
+                       / logits.abs().max())
+    summary = {"card": card, "mesh": out["mesh"],
+               "grid": [[str(d) for d in row] for row in mesh.grid],
+               "loss": out["loss"],
+               "single_device_loss": out["single_device_loss"],
+               "action_loss": out["action_loss"],
+               "aux_loss": out["aux_loss"], "launches": launches,
+               "actions": out["actions"].view(-1).tolist(),
+               "one_device_actions": actions.view(-1).tolist(),
+               "logits_err": logits_err,
+               "seconds": time.perf_counter() - t0}
+    print(f"  19b [{card}] dryrun_multichip(4) over {summary['grid']}: loss "
+          f"{out['loss']:.6f} vs one device {out['single_device_loss']:.6f}; "
+          f"K1/K2/K3 launches {launches} for {rows} data rows x 1 act step; "
+          f"actions {summary['actions']} vs one device "
+          f"{summary['one_device_actions']}; logits {logits_err:.3e}; "
+          f"{summary['seconds']:.2f} s")
+    if launches != {"accumulate": rows, "rasterize": rows, "known_load": 0}:
+        raise SystemExit(f"phase 19b: launches {launches}, expected {rows} "
+                         "each of K1 and K2")
+    if not torch.equal(out["actions"], actions) or (
+            logits_err > TRAIN_GRAD_TOL):
+        raise SystemExit(f"phase 19b: the sharded act differs: {summary}")
+    return summary
+
+
+def mp_timing(card: str, tmp: str, batch, devices, layouts) -> dict:
+    """Phase 19c: float32 updates through the trainer's ``_update_agent``
+    from the seeded weights, one device against each (data, model) layout
+    (its step the mesh's, its policy split by ``shard_policy``; no trainer
+    builds a model axis): the first update's loss terms within
+    TRAIN_LOSS_RTOL; then DP_ROUNDS rounds of MP_STEPS updates of each,
+    in turns (1, a, b, b, a, 1): wall ms per train step and the peak
+    memory of each on each card."""
+    from ivlnce_tpu_torch import parallel
+    from ivlnce_tpu_torch.config import get_config
+    from ivlnce_tpu_torch.trainers.base_trainer import (
+        BaseVLNCETrainer,
+        make_optimizer,
+    )
+
+    trainers = {}
+    for data, model in [(1, 1)] + list(layouts):
+        label = "1" if model == 1 else f"{data}x{model}"
+        config = get_config(TRAIN_CONFIGS["train_map_cma"], [
+            "TPU.data_parallel_devices", str(data),
+            "CHECKPOINT_FOLDER", os.path.join(tmp, f"mp{label}", "ckpts"),
+            "EVAL.SAVE_RESULTS", "False"])
+        mesh = _layout(data, model, devices)
+        trainer = BaseVLNCETrainer(config, devices[0],
+                                   devices=list(mesh.devices))
+        policy = _training_policy(config, torch.float32, devices[0])
+        if model > 1:
+            policy = parallel.shard_policy(policy, mesh)
+            trainer._train_steps[data] = parallel.sharded_train_step(mesh)
+        trainer.policy = policy
+        trainer.optimizer = make_optimizer(policy, config)
+        trainers[label] = trainer
+    first = {k: tr._update_agent(*batch)[:3] for k, tr in trainers.items()}
+    loss_err = {k: max(abs(a - b) / abs(b) for a, b in zip(v, first["1"])
+                       if b) for k, v in first.items()}
+    keys = list(trainers)
+    ms, peak = _timed_rounds(
+        {k: tr._update_agent for k, tr in trainers.items()},
+        (keys + keys[::-1]) * (DP_ROUNDS // 2), devices, batch, MP_STEPS)
+    for k in keys:
+        print(f"  19c [{card}] {k}: wall ms per train step "
+              f"{', '.join(f'{x:.2f}' for x in ms[k])} (rounds of "
+              f"{MP_STEPS}); memory {peak[k]}; first loss terms {first[k]} "
+              f"(relative to 1-way {loss_err[k]:.3e})")
+    if max(loss_err.values()) > TRAIN_LOSS_RTOL:
+        raise SystemExit(f"phase 19c: float32 loss terms {first}")
+    return {"card": card, "devices": [str(d) for d in devices],
+            "first_loss_terms": first, "first_loss_rel_err": loss_err,
+            "wall_ms_per_train_step": ms, "rounds": DP_ROUNDS,
+            "steps_per_round": MP_STEPS, "peak_memory": peak}
+
+
+def phase_model_axis(card: str, tmp: str, batch, devices=None) -> dict:
+    """Phase 19: the tensor-parallel ``model`` axis at full width (MapCMA,
+    hidden 512, 64^2 maps; ``mp_layouts``): (a) float64 updates against
+    one device; (b) ``dryrun_multichip(4)`` over the same four devices and
+    its fused act (K1, K2 on each data row's lead); (c) float32 updates,
+    timed."""
+    t0 = time.perf_counter()
+    devices, layouts = mp_layouts(devices)
+    print(f"  layouts (data, model) {layouts} over {devices}")
+    out = {"check": mp_check(card, batch, devices, layouts)}
+    out["dryrun"] = mp_dryrun(card, devices)
+    out["timing"] = mp_timing(card, tmp, batch, devices, layouts)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 19 took {out['seconds']:.2f} s")
     return out
 
 
@@ -3484,21 +3770,49 @@ def orbax_only() -> int:
 
 
 def data_parallel_only() -> int:
-    """``chip_smoke.py --data-parallel``: phase 17 alone on a seeded batch
-    (T=30, N=4), 2-way and, with 4 cards, 4-way, over distinct cards where
-    there are enough."""
+    """``chip_smoke.py --data-parallel``: phases 17 and 19 alone on a
+    seeded batch (T=30, N=4), after the kernels' build (phase 2): 2-way
+    and, with 4 cards, 4-way, over distinct cards where there are enough;
+    the model axis as (2, 2) and (1, 4) over cuda:0..3 with 4 cards, and
+    ``dryrun_multichip(4)`` over cuda:0..3, else (1, 2) and (2, 2) and the
+    dry run on cuda:0."""
+    from ivlnce_tpu_torch.ops import kernels
     from ivlnce_tpu_torch.utils.device import resolve_device
 
     resolve_device("cuda")  # TF32 off
     card = card_line()
     print(card)
+    kernels.library()
     batch = dp_seeded_batch(30, DP_LANES)
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
         for ways in (2, 4) if torch.cuda.device_count() >= 4 else (2,):
             print(f"phase 17: the data-parallel IL update, {ways}-way")
             runs[f"{ways}_way"] = phase_data_parallel(card, tmp, batch, ways)
+        print("phase 19: the tensor-parallel model axis")
+        runs["model_axis"] = phase_model_axis(card, tmp, batch)
     print(json.dumps({"data_parallel": runs}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def model_axis_only() -> int:
+    """``chip_smoke.py --model-axis``: phase 19 alone on a seeded batch
+    (T=30, N=4), after the kernels' build (phase 2)."""
+    from ivlnce_tpu_torch.ops import kernels
+    from ivlnce_tpu_torch.utils.device import resolve_device
+
+    resolve_device("cuda")  # TF32 off
+    card = card_line()
+    print(card)
+    kernels.library()
+    print("phase 19: the tensor-parallel model axis")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = phase_model_axis(card, tmp, dp_seeded_batch(30, DP_LANES))
+    print(json.dumps({"model_axis": out}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3512,6 +3826,8 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--data-parallel"]:
         return data_parallel_only()
+    if sys.argv[1:] == ["--model-axis"]:
+        return model_axis_only()
     if sys.argv[1:] == ["--orbax"]:
         return orbax_only()
     # the port reads the host-phase switch at import (phase 13c)
@@ -3520,12 +3836,16 @@ def main() -> int:
     from ivlnce_tpu_torch.utils.device import resolve_device
 
     t_start = time.perf_counter()
+
+    def phase(text: str) -> None:
+        print(f"{text} [at {time.perf_counter() - t_start:.2f} s]")
+
     resolve_device("cuda")  # TF32 off
     card = card_line()
     print(card)
     name = torch.cuda.get_device_name(0)
 
-    print("phase 2: build")
+    phase("phase 2: build")
     t0 = time.perf_counter()
     kernels.library()
     print(f"  built in {time.perf_counter() - t0:.2f} s")
@@ -3540,12 +3860,12 @@ def main() -> int:
     print(f"  rasterize_cluster: {clusters.value} clusters of 8 blocks "
           f"resident at once (64 x 64 map), {8 * clusters.value} blocks")
 
-    print("phase 3: kernels vs plain versions (256^2, G=1024; K3 2^18 "
+    phase("phase 3: kernels vs plain versions (256^2, G=1024; K3 2^18 "
           "points per cloud, edge cases, val_seen clouds)")
     worst = phase_kernels_vs_plain_walks()
     worst["known_load"] = phase_known_vs_plain()
 
-    print("phase 4: timing (B=64 and B=3, noise and FakeSim walks; K3 "
+    phase("phase 4: timing (B=64 and B=3, noise and FakeSim walks; K3 "
           "at B=64, L=3 and L=1)")
     walks_timed = phase_timing(card)
     timing = {k: walks_timed["fakesim_b64"][k]
@@ -3553,7 +3873,7 @@ def main() -> int:
     known_timed = phase_known_timing(card)
     timing["known_load"] = known_timed["b64"]
 
-    print("phase 5: full-width steps, card vs CPU")
+    phase("phase 5: full-width steps, card vs CPU")
     reference = {"policy": phase_reference(card),
                  "known_occupied": phase_known_reference(card),
                  "rednet": phase_rednet_reference(card),
@@ -3569,15 +3889,15 @@ def main() -> int:
         save_checkpoint(seeded_policy(get_config(CONFIG)),
                         get_config(CONFIG), ckpt)
         one_tour = one_tour_per_lane(tmp)
-        print("phase 6: end-to-end iterative eval through run_exp")
+        phase("phase 6: end-to-end iterative eval through run_exp")
         e2e["iterative"] = phase_end_to_end(card, tmp, ckpt, "iterative")
-        print("phase 7: traced eval, device time by range")
+        phase("phase 7: traced eval, device time by range")
         traces["iterative"] = phase_trace(
             card, tmp, ckpt, e2e["iterative"]["wall_ms_per_step"],
             "iterative", one_tour)
-        print("phase 8: known-map eval through run_exp, one tour per lane")
+        phase("phase 8: known-map eval through run_exp, one tour per lane")
         e2e["known"] = phase_end_to_end(card, tmp, ckpt, "known", one_tour)
-        print("phase 9: predicted-semantics eval through run_exp, one tour "
+        phase("phase 9: predicted-semantics eval through run_exp, one tour "
               "per lane, then traced")
         e2e["predicted"] = phase_end_to_end(card, tmp, ckpt, "predicted",
                                             one_tour)
@@ -3597,7 +3917,7 @@ def main() -> int:
               f"{traces['predicted']['semantics_bound_ms']:.4f} ms at 67 "
               f"TFLOP/s against {semantics_ms:.4f} ms in the semantics range")
 
-        print("phase 10: the latent baselines' tour evals through run_exp, "
+        phase("phase 10: the latent baselines' tour evals through run_exp, "
               "one tour per lane")
         for variant, (flags, layers) in LATENT_VARIANTS.items():
             path = f"latent_{variant}"
@@ -3611,7 +3931,7 @@ def main() -> int:
                 raise SystemExit(f"{path} loaded a policy with "
                                  f"{e2e[path]['recurrent_layers']} "
                                  f"recurrent layers, not {layers}")
-        print("phase 11: the memory_at_end baseline traced")
+        phase("phase 11: the memory_at_end baseline traced")
         path = "latent_4_pool_end_cma"
         traces["latent"] = trace = phase_trace(
             card, tmp, latent_ckpt, e2e[path]["wall_ms_per_step"], path,
@@ -3633,7 +3953,7 @@ def main() -> int:
               f"range and {ranges['depth_encoder']:.4f} ms in the "
               f"depth_encoder range")
 
-        print("phase 12: episodic evals through run_exp")
+        phase("phase 12: episodic evals through run_exp")
         e2e["map_episodic"] = phase_end_to_end(card, tmp, ckpt,
                                                "map_episodic")
         rxr_ckpt = os.path.join(tmp, "ckpt_rxr.0.pth")
@@ -3642,37 +3962,42 @@ def main() -> int:
                         get_config(RXR_CONFIG), rxr_ckpt)
         e2e["rxr"] = phase_end_to_end(card, tmp, rxr_ckpt, "rxr")
 
-        print("phase 13: the eval surface: checkpoint kinds, videos and "
+        phase("phase 13: the eval surface: checkpoint kinds, videos and "
               "the trace (host phases: every run_exp eval above)")
         for kind, run in phase_checkpoint_kinds(card, tmp,
                                                 one_tour).items():
             e2e[f"ckpt_{kind}"] = run
         e2e["map_episodic_videos"] = phase_videos_and_trace(card, tmp, ckpt)
 
-        print("phase 14: training: MapCMA teacher forcing and LatentCMA "
+        phase("phase 14: training: MapCMA teacher forcing and LatentCMA "
               "through run_exp, a train step card vs CPU, the trace")
         training = phase_training(card, tmp, one_tour)
         e2e["train_map_cma_eval"] = training.pop("train_map_cma_eval")
 
-        print("phase 15: tour-BPTT training through run_exp, two carried "
+        phase("phase 15: tour-BPTT training through run_exp, two carried "
               "batches card vs CPU")
         training.update(phase_tour_training(card, tmp))
 
-        print("phase 16: TPU.compute_dtype bfloat16: the parts card vs CPU, "
+        phase("phase 16: TPU.compute_dtype bfloat16: the parts card vs CPU, "
               "the evals traced, training")
         bf16 = phase_bf16(card, tmp, {"map": ckpt, "latent": latent_ckpt,
                                       "rxr": rxr_ckpt}, one_tour, e2e,
                           traces)
         training.update(bf16.pop("training"))
 
-        print("phase 17: the data-parallel IL update (MapCMA, 4 lanes of "
+        phase("phase 17: the data-parallel IL update (MapCMA, 4 lanes of "
               "phase 14a's store), 2-way against 1-way")
         training["data_parallel"] = phase_data_parallel(
             card, tmp, dp_store_batch(training["train_map_cma"]["store"]))
 
-        print("phase 18: a JAX-written Orbax checkpoint: read, evaluated and "
+        phase("phase 18: a JAX-written Orbax checkpoint: read, evaluated and "
               "warm started from")
         orbax = phase_orbax(card, tmp)
+
+        phase("phase 19: the tensor-parallel model axis (MapCMA, phase 17's "
+              "batch; dryrun_multichip's fused act)")
+        model_axis = phase_model_axis(
+            card, tmp, dp_store_batch(training["train_map_cma"]["store"]))
 
     # each kernel's launches come from the path that runs it
     kernel_path = {"accumulate": "iterative", "rasterize": "iterative",
@@ -3703,7 +4028,8 @@ def main() -> int:
                 **{p: training[p]["launches"][k]
                    for p in ("train_map_cma", "train_latent", "train_tour",
                              "train_map_cma_bf16", "train_latent_bf16",
-                             "train_tour_bf16")}},
+                             "train_tour_bf16")},
+                "dryrun_multichip": model_axis["dryrun"]["launches"][k]},
             "pass_ms": timing[k]["pass_ms"],
         }
         for k in ("accumulate", "rasterize", "known_load")
@@ -3725,7 +4051,7 @@ def main() -> int:
     print(json.dumps({"end_to_end": e2e, "trace": traces,
                       "training": training,
                       "reference": reference, "bf16": bf16,
-                      "orbax": orbax,
+                      "orbax": orbax, "model_axis": model_axis,
                       "kernel_walks": walks_timed,
                       "known_load_timing": known_timed,
                       "seconds": time.perf_counter() - t_start}))

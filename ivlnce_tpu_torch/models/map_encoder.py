@@ -78,7 +78,7 @@ class SemanticMapEncoder(nn.Module):
         map_encoder.py:44-72, cma.py:173-183)."""
         if dtype is None or training:
             x = self._inputs(occupancy, semantic,
-                             self.cnn[0].conv[0].weight.dtype)
+                             next(self.cnn.parameters()).dtype)
             for block in self.cnn:
                 x = block(x, training)
             return x
@@ -93,7 +93,7 @@ class SemanticMapEncoder(nn.Module):
         normalise its output, which feeds block i + 1 (JAX
         ``map_encoder_new_stats``)."""
         x = self._inputs(occupancy, semantic,
-                         self.cnn[0].conv[0].weight.dtype)
+                         next(self.cnn.parameters()).dtype)
         for block in self.cnn:
             bn = block.conv[1]
             pre = block.conv[0](x)

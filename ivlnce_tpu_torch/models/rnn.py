@@ -1,10 +1,16 @@
 """Recurrent pieces of the MapCMA path: the PyTorch counterpart of
 ``ivlnce_tpu/models/rnn.py``. Weight layouts are torch's own (GRU gates
-[r, z, n], LSTM gates [i, f, g, o])."""
+[r, z, n], LSTM gates [i, f, g, o]).
+
+``nn.GRU`` and ``nn.LSTM`` (cuDNN on the card) run the recurrences. A
+module that holds its weights split over a mesh's model devices
+(``parallel/tensor.py``) computes the gate pre-activations ``gi`` and
+``gh`` itself and runs the gate arithmetic here (``gru_gates``,
+``lstm_gates``: JAX's ``gru_cell`` and ``lstm_cell``)."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 from torch import nn
@@ -13,7 +19,8 @@ from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
 class RNNStateEncoder(nn.Module):
     """habitat's RNNStateEncoder for one GRU layer (module attribute
-    ``rnn``, as in the reference checkpoints)."""
+    ``rnn``, as in the reference checkpoints; a model-axis copy holds a
+    ``parallel/tensor.py::GateSplitGRU`` there, with the GRU's call)."""
 
     def __init__(self, input_size: int, hidden_size: int):
         super().__init__()
@@ -42,13 +49,77 @@ class RNNStateEncoder(nn.Module):
         return torch.stack(outs), h
 
 
+def gru_gates(gi: torch.Tensor, gh: torch.Tensor,
+              h: torch.Tensor) -> torch.Tensor:
+    """nn.GRU's update from ``gi = x W_ih^T + b_ih`` and ``gh = h W_hh^T +
+    b_hh`` (3H each): the reset gate scales (W_hn h + b_hn) only."""
+    i_r, i_z, i_n = gi.chunk(3, -1)
+    h_r, h_z, h_n = gh.chunk(3, -1)
+    r = torch.sigmoid(i_r + h_r)
+    z = torch.sigmoid(i_z + h_z)
+    n = torch.tanh(i_n + r * h_n)
+    return (1 - z) * n + z * h
+
+
+def lstm_gates(gi: torch.Tensor, gh: torch.Tensor, c: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """nn.LSTM's update from the 4H pre-activations: (h, c)."""
+    i, f, g, o = (gi + gh).chunk(4, -1)
+    c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c), c
+
+
+LSTMStep = Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
+                    Tuple[torch.Tensor, torch.Tensor]]
+
+
+def bi_lstm_cells(step_fwd: LSTMStep, step_bwd: LSTMStep, hidden: int,
+                  xs: torch.Tensor, lengths: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``bi_lstm_padded`` one step at a time, from a cell per direction
+    (``step(x, h, c) -> (h, c)``), as JAX's ``bi_lstm_padded`` runs it:
+    the forward direction holds its state over padded steps; the backward
+    one reads each row from t = len - 1 down to 0 (the row reversed within
+    its own length); padded outputs are 0; the final hidden states are
+    each row's own last steps'."""
+    b, t, _ = xs.shape
+    steps = torch.arange(t, device=xs.device)[None]
+    lengths = lengths.to(xs.device)
+    valid = steps < lengths[:, None]  # (B, T)
+
+    def run(step, seq):
+        h = c = xs.new_zeros((b, hidden))
+        outs = []
+        for i in range(t):
+            h_new, c_new = step(seq[:, i], h, c)
+            keep = valid[:, i, None]
+            h = torch.where(keep, h_new, h)
+            c = torch.where(keep, c_new, c)
+            outs.append(torch.where(keep, h_new, torch.zeros_like(h_new)))
+        return torch.stack(outs, 1), h
+
+    out_f, h_f = run(step_fwd, xs)
+    rev = (lengths[:, None] - 1 - steps).clamp(0, t - 1)  # (B, T)
+
+    def reverse(a):
+        return a.gather(1, rev[:, :, None].expand(-1, -1, a.shape[2]))
+
+    out_b, h_b = run(step_bwd, reverse(xs))
+    out_b = torch.where(valid[:, :, None], reverse(out_b),
+                        torch.zeros_like(out_b))
+    return torch.cat([out_f, out_b], -1), torch.cat([h_f, h_b], -1)
+
+
 def bi_lstm_padded(
-    lstm: nn.LSTM, xs: torch.Tensor, lengths: torch.Tensor
+    lstm: nn.Module, xs: torch.Tensor, lengths: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Bidirectional LSTM over padded (B, T, I) sequences:
     pack_padded_sequence -> LSTM -> pad_packed_sequence. Padded outputs are
     0. Returns (outputs (B, T, 2H), final hidden (B, 2H)); an empty row
-    gives zeros."""
+    gives zeros. An LSTM split over model devices
+    (``parallel/tensor.py``) runs its own cells (``padded``)."""
+    if not isinstance(lstm, nn.LSTM):
+        return lstm.padded(xs, lengths)
     b, t, _ = xs.shape
     packed = pack_padded_sequence(
         xs, lengths.clamp(min=1).cpu(), batch_first=True,

@@ -370,6 +370,10 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def stream_arg(device: torch.device) -> ctypes.c_void_p:
+    """``device``'s current stream. The C entry points launch on the
+    current device, so each wrapper calls them under
+    ``torch.cuda.device(device)``: a tensor on another card than the
+    current one would otherwise be read on the wrong card's stream."""
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
@@ -431,8 +435,9 @@ def accumulate(
     # the candidates' warp ballots between the kernel's two passes
     scratch = torch.empty(lib.mapper_accumulate_scratch_bytes(*sizes[:3]),
                           dtype=torch.uint8, device=dev)
-    err = lib.mapper_accumulate(*pointers, _ptr(scratch), *sizes, *floats,
-                                stream_arg(dev))
+    with torch.cuda.device(dev):
+        err = lib.mapper_accumulate(*pointers, _ptr(scratch), *sizes,
+                                    *floats, stream_arg(dev))
     launches.accumulate += 1
     kernels.check(err, "mapper_accumulate")
 
@@ -489,7 +494,8 @@ def rasterize(
 
     occupancy, semantic, c_args = rasterize_args(
         word, aux, start, origin, lane_ras, window, dims, half_res)
-    err = kernels.library().mapper_rasterize(*c_args, stream_arg(dev))
+    with torch.cuda.device(dev):
+        err = kernels.library().mapper_rasterize(*c_args, stream_arg(dev))
     launches.rasterize += 1
     kernels.check(err, "mapper_rasterize")
     return occupancy, semantic
@@ -543,8 +549,9 @@ def known_load(
     # each chunk's records sorted by tile, and each tile's run per chunk
     scratch = torch.empty(lib.mapper_known_load_scratch_bytes(*sizes),
                           dtype=torch.uint8, device=dev)
-    err = lib.mapper_known_load(*pointers, _ptr(scratch), *sizes, *floats,
-                                stream_arg(dev))
+    with torch.cuda.device(dev):
+        err = lib.mapper_known_load(*pointers, _ptr(scratch), *sizes,
+                                    *floats, stream_arg(dev))
     launches.known_load += 1
     kernels.check(err, "mapper_known_load")
 

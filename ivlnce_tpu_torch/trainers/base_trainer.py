@@ -161,6 +161,17 @@ def checkpoints_in(folder: str) -> List[Tuple[int, str]]:
 
 
 # -- the training step --------------------------------------------------------
+def train_mode(policy):
+    """The modes a policy trains in: eval, but for the recurrent modules,
+    which cuDNN's backward needs in train mode; BatchNorm is switched by
+    the forward's ``training`` argument. Returns ``policy``."""
+    policy.eval()
+    for module in policy.modules():
+        if isinstance(module, torch.nn.RNNBase):
+            module.train()
+    return policy
+
+
 def make_optimizer(policy, config) -> torch.optim.Adam:
     """Adam at ``IL.lr`` (optax's defaults: betas 0.9 / 0.999, eps 1e-8);
     with ``SEMANTIC_MAP_ENCODER.custom_lr`` the map encoder's parameters
@@ -389,11 +400,7 @@ class BaseVLNCETrainer:
         policy, ckpt = self._build_policy(
             config, config.IL.ckpt_to_load if load else None
         )
-        policy.eval()
-        for module in policy.modules():
-            if isinstance(module, torch.nn.RNNBase):
-                module.train()
-        self.policy = policy
+        self.policy = train_mode(policy)
         self.optimizer = make_optimizer(policy, config)
         self.start_epoch, self.step_id = 0, 0
         if ckpt is not None and config.IL.is_requeue and "optim_state" in ckpt:

@@ -36,7 +36,9 @@ def _port_modules():
 
 def test_every_module_imports_without_jax_or_the_jax_package():
     assert {"ivlnce_tpu_torch.parallel.mesh",
-            "ivlnce_tpu_torch.parallel.train"} <= set(_port_modules())
+            "ivlnce_tpu_torch.parallel.train",
+            "ivlnce_tpu_torch.parallel.tensor",
+            "ivlnce_tpu_torch.parallel.dryrun"} <= set(_port_modules())
     blocker = "; ".join(f"sys.modules[{m!r}] = None"
                         for m in FORBIDDEN[:-1])
     code = (

@@ -6,7 +6,8 @@ CPU (depth and maps 64x64, hidden 64, T = 3, N = 4):
     ``_data_parallel_devices`` does on the 8-device virtual platform
     (tests/conftest.py), the port given eight CPU shards, with one
     warning per distinct lane count on both sides;
-(b) ``make_mesh``'s shapes, and its refusal of a ``model`` axis;
+(b) ``make_mesh``'s shapes, with a ``model`` axis as JAX lays it out
+    (``tests/test_torch_model_axis.py`` holds the model axis itself);
 (c) ``sharded_train_step`` over 2 and 4 CPU shards against
     ``train_step``: MapCMA with the progress monitor, the trainable map
     encoder and ``update_map_bn``, Adam with ``custom_lr``'s two groups,
@@ -53,7 +54,6 @@ from ivlnce_tpu.trainers.base_trainer import BaseVLNCETrainer as JaxTrainer
 from ivlnce_tpu_torch import parallel
 from ivlnce_tpu_torch.config import get_config as torch_config
 from ivlnce_tpu_torch.models.convert import params_from_jax
-from ivlnce_tpu_torch.parallel.mesh import MODEL_AXIS_TODO
 from ivlnce_tpu_torch.trainers import base_trainer as tbt
 from ivlnce_tpu_torch.utils.registry import registry as torch_registry
 from ivlnce_tpu_torch.trainers import tour_dataset as ttd
@@ -161,10 +161,16 @@ def test_make_mesh_shapes_and_lane_shards():
 
 @pytest.mark.parametrize("model_parallel", [2, 3])
 def test_make_mesh_refuses_a_model_axis(model_parallel):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parallel.make_mesh(8, model_parallel=model_parallel,
-                           devices=["cpu"] * 8)
-    assert "section 1, item 3" in MODEL_AXIS_TODO
+    """A ``model`` axis is refused only where JAX refuses it: 8 devices
+    do not divide into rows of 3; rows of 2 give JAX's (4, 2) grid."""
+    if model_parallel == 3:
+        with pytest.raises(ValueError, match="8 devices not divisible by "
+                           "model_parallel=3"):
+            parallel.make_mesh(8, model_parallel=3, devices=["cpu"] * 8)
+        return
+    mesh = parallel.make_mesh(8, model_parallel=2, devices=["cpu"] * 8)
+    assert mesh.shape == {"data": 4, "model": 2}
+    assert mesh.grid == ((torch.device("cpu"),) * 2,) * 4
 
 
 # -- (c) the sharded step against the one-device step -------------------------
@@ -209,13 +215,12 @@ def one_device_run(request):
     return tcfg, tpol, batch, _float64_run(tpol, tcfg, batch, 1)
 
 
-@pytest.mark.parametrize("shards", [2, 4])
-def test_sharded_step_equals_the_one_device_step(one_device_run, shards):
-    tcfg, tpol, batch, want = one_device_run
-    terms, rnn, grads, state, moments = _float64_run(tpol, tcfg, batch,
-                                                     shards)
-    for got, ref in zip(terms, want[0]):
-        assert abs(got - ref) <= LOSS_RTOL * abs(ref), (got, ref)
+def assert_same_update(got, want, tpol):
+    """``got`` (``_float64_run``'s results) equals the one-device update
+    ``want`` of ``tpol`` at (c)'s limits."""
+    terms, rnn, grads, state, moments = got
+    for g, ref in zip(terms, want[0]):
+        assert abs(g - ref) <= LOSS_RTOL * abs(ref), (g, ref)
     assert want[0][2] > 0  # the progress monitor took part
     _close("rnn_states", rnn, want[1])
     assert grads.keys() == want[2].keys()
@@ -237,6 +242,12 @@ def test_sharded_step_equals_the_one_device_step(one_device_run, shards):
     before = tpol.state_dict()
     assert all(not torch.equal(v, before[k].double())
                for k, v in _map_bn(state).items())
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_sharded_step_equals_the_one_device_step(one_device_run, shards):
+    tcfg, tpol, batch, want = one_device_run
+    assert_same_update(_float64_run(tpol, tcfg, batch, shards), want, tpol)
 
 
 # -- (d) the trainer against the JAX trainer on its 4-device mesh -------------
