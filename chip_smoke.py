@@ -1431,10 +1431,10 @@ def one_tour_per_lane(tmp: str, scenes=None) -> tuple:
 
 
 def host_phases(trainer, wall=None) -> dict:
-    """The run's host-phase split (``utils/profiling.wall_range``, reset
-    at each checkpoint's start and at a training run's): seconds, spans and
-    share of the loop's wall time (the eval loop's unless ``wall`` is
-    given) per phase, the rest as ``other``."""
+    """The run's host-phase split (the outermost ``utils/profiling.span``
+    ranges, reset at each checkpoint's start and at a training run's):
+    seconds, spans and share of the loop's wall time (the eval loop's
+    unless ``wall`` is given) per phase, the rest as ``other``."""
     from ivlnce_tpu_torch.utils import profiling
 
     if not profiling._PHASES_ON:

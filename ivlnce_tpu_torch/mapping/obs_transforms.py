@@ -18,7 +18,6 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ivlnce_tpu_torch.mapping.camera import (
     CameraParameters,
@@ -33,7 +32,7 @@ from ivlnce_tpu_torch.mapping.mapper import (
 )
 from ivlnce_tpu_torch.models.nn import compute_dtype as nn_compute_dtype
 from ivlnce_tpu_torch.ops.geometry import MapDims
-from ivlnce_tpu_torch.utils import logging_util
+from ivlnce_tpu_torch.utils import logging_util, profiling
 from ivlnce_tpu_torch.utils.registry import registry
 
 REDNET_CHECKPOINT = "data/rednet_mp3d_best_model.pkl"
@@ -216,7 +215,7 @@ class Mapper:
                 self._loaded_env_names[row] = name
         if lanes:
             self.known_map_loads += len(lanes)
-            with record_function("known_map_load"):
+            with profiling.span("known_map_load"):
                 xyz, sem, counts = self._stack_clouds(clouds)
                 load_lanes(self.params, self.state, lanes, xyz, sem, counts,
                            np.stack(centers).astype(np.float32))
@@ -277,7 +276,7 @@ class Mapper:
                         predict_semantics,
                     )
 
-                    with record_function("semantics"):
+                    with profiling.span("semantics"):
                         semantics = predict_semantics(rednet, obs["rgb"],
                                                       depth, dtype)
                 else:

@@ -22,7 +22,6 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from ivlnce_tpu_torch.models import instruction_encoder as IE
 from ivlnce_tpu_torch.models.map_encoder import SemanticMapEncoder
@@ -32,6 +31,7 @@ from ivlnce_tpu_torch.models.resnet import (
     VlnResnetDepthEncoder,
 )
 from ivlnce_tpu_torch.models.rnn import RNNStateEncoder
+from ivlnce_tpu_torch.utils import profiling
 
 NUM_ACTIONS = 4  # STOP, MOVE_FORWARD, TURN_LEFT, TURN_RIGHT
 
@@ -113,7 +113,7 @@ class MapCMANet(nn.Module):
         if "depth_features" in observations:
             dep = observations["depth_features"]
         else:
-            with record_function("depth_encoder"):
+            with profiling.span("depth_encoder"):
                 dep = self.depth_encoder(observations["depth"],
                                          self.compute_dtype)
         dep = dep.flatten(2)
@@ -151,7 +151,7 @@ class MapCMANet(nn.Module):
                    training: bool = False) -> torch.Tensor:
         """The map encoder's (B, C, R/16, C/16) features of (B, R, C)
         maps."""
-        with record_function("map_encoder"):
+        with profiling.span("map_encoder"):
             return self.map_encoder(
                 occupancy, semantic,
                 training=training and self.cfg.SEMANTIC_MAP_ENCODER.trainable,
@@ -252,14 +252,14 @@ class LatentCMANet(nn.Module):
         if "depth_features" in observations:
             dep = observations["depth_features"]
         else:
-            with record_function("depth_encoder"):
+            with profiling.span("depth_encoder"):
                 dep = self.depth_encoder(observations["depth"],
                                          self.compute_dtype)
         dep = dep.flatten(2)
         if "rgb_features" in observations:
             rgb = observations["rgb_features"]
         else:
-            with record_function("rgb_encoder"):
+            with profiling.span("rgb_encoder"):
                 rgb = self.rgb_encoder(observations["rgb"],
                                        self.compute_dtype)
         rgb = rgb.flatten(2)

@@ -14,7 +14,6 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 from torch.distributions import Categorical
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ivlnce_tpu_torch.models.cma import (
@@ -23,6 +22,7 @@ from ivlnce_tpu_torch.models.cma import (
     LatentCMANet,
     MapCMANet,
 )
+from ivlnce_tpu_torch.utils import profiling
 from ivlnce_tpu_torch.utils.registry import registry
 
 
@@ -97,9 +97,9 @@ class CMAPolicy(nn.Module):
     def _act(self, observations, rnn_states, prev_actions, action_masks,
              episode_masks, tour_masks, generator) -> PolicyOutput:
         # named ranges a torch.profiler trace attributes device time to
-        with record_function("encoders"):
+        with profiling.span("encoders"):
             feats = self.net.encode(observations, prev_actions, action_masks)
-        with record_function("gru_attention"):
+        with profiling.span("gru_attention"):
             features, rnn_out = self.net.step(
                 feats, rnn_states, episode_masks, tour_masks
             )
@@ -134,10 +134,10 @@ class CMAPolicy(nn.Module):
         tour = agent if tour_not_done_masks is None else (
             tour_not_done_masks.reshape(t, n))
         episode_t, tour_t = self._training_masks(agent, tour)
-        with record_function("train_encode"):
+        with profiling.span("train_encode"):
             feats = self._encode_seq(observations, prev_actions,
                                      agent.reshape(-1), training)
-        with record_function("train_rnn"):
+        with profiling.span("train_rnn"):
             feats_t = [x.reshape((t, n) + x.shape[1:]) for x in feats]
             features, h = [], rnn_states
             for i in range(t):

@@ -16,6 +16,8 @@ import torch
 from torch import nn
 from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
+from ivlnce_tpu_torch.utils import profiling
+
 
 class RNNStateEncoder(nn.Module):
     """habitat's RNNStateEncoder for one GRU layer (module attribute
@@ -121,9 +123,10 @@ def bi_lstm_padded(
     if not isinstance(lstm, nn.LSTM):
         return lstm.padded(xs, lengths)
     b, t, _ = xs.shape
+    with profiling.span("device_sync"):
+        host_lengths = lengths.clamp(min=1).cpu()
     packed = pack_padded_sequence(
-        xs, lengths.clamp(min=1).cpu(), batch_first=True,
-        enforce_sorted=False,
+        xs, host_lengths, batch_first=True, enforce_sorted=False,
     )
     out, (h_n, _) = lstm(packed)
     out, _ = pad_packed_sequence(out, batch_first=True, total_length=t)

@@ -64,11 +64,11 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from ivlnce_tpu_torch.parallel.mesh import Mesh, lane_shards
 from ivlnce_tpu_torch.parallel.tensor import shard_policy, split_columns
 from ivlnce_tpu_torch.trainers import base_trainer
+from ivlnce_tpu_torch.utils import profiling
 
 MAP_KEYS = ("occupancy_map", "semantic_map")
 
@@ -191,8 +191,9 @@ class ShardedTrainStep:
         n_aux_rows = int((torch.as_tensor(weights) > 0).sum())
         maps = map_features = None
         if hasattr(policy.net, "map_encoder"):
-            maps = [_upload(observations[k], lead) for k in MAP_KEYS]
-            with record_function("train_encode"):
+            with profiling.span("upload"):
+                maps = [_upload(observations[k], lead) for k in MAP_KEYS]
+            with profiling.span("train_encode"):
                 map_features = policy.encode_maps(*maps, training=True)
         parts = []
         for row, (device, lanes) in zip(self.mesh.grid,
@@ -202,31 +203,31 @@ class ShardedTrainStep:
             def rows(a, flat=True):
                 return _lane_rows(a, lanes, t, n, device, flat)
 
-            obs = {k: rows(v) for k, v in observations.items()
-                   if maps is None or k not in MAP_KEYS}
-            if map_features is not None:
-                obs["map_features"] = rows(map_features)
+            with profiling.span("upload"):
+                obs = {k: rows(v) for k, v in observations.items()
+                       if maps is None or k not in MAP_KEYS}
+                if map_features is not None:
+                    obs["map_features"] = rows(map_features)
+                args = (rows(prev_actions), rows(episode_masks, False),
+                        rows(tour_masks, False), rows(corrected, False),
+                        rows(weights, False), rnn_states[lanes].to(device))
             parts.append(base_trainer.train_loss(
-                module, obs, rows(prev_actions), rows(episode_masks, False),
-                rows(tour_masks, False), rows(corrected, False),
-                rows(weights, False), rnn_states[lanes].to(device),
-                use_progress, alpha, n_lanes=n, n_aux_rows=n_aux_rows,
+                module, obs, *args, use_progress, alpha, n_lanes=n,
+                n_aux_rows=n_aux_rows,
             ))
         loss, action_loss, aux_loss = (
             torch.stack([p[i].to(lead) for p in parts]).sum()
             for i in range(3))
-        with record_function("backward"):
+        with profiling.span("backward"):
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
-        with record_function("grad_reduce"):
-            self._reduce_grads(policy)
-        with record_function("optimizer"):
+        self._reduce_grads(policy)
+        with profiling.span("optimizer"):
             optimizer.step()
         if update_map_bn:
-            with record_function("map_bn_stats"):
+            with profiling.span("map_bn_stats"):
                 policy.net.map_encoder.update_running_stats(*maps)
-        with record_function("param_broadcast"):
-            self._broadcast(policy)
+        self._broadcast(policy)
         rnn_out = torch.cat([p[3].detach().to(lead) for p in parts], 0)
         return (loss.detach(), action_loss.detach(), aux_loss.detach(),
                 rnn_out)

@@ -31,7 +31,6 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ivlnce_tpu_torch import parallel
 from ivlnce_tpu_torch.envs.vector_env import construct_envs_auto_reset_false
@@ -210,7 +209,7 @@ def train_loss(policy, observations, prev_actions, episode_masks,
         observations, rnn_states, prev_actions, episode_masks, tour_masks,
         training=True,
     )
-    with record_function("train_loss"):
+    with profiling.span("train_loss"):
         logp = torch.log_softmax(logits.reshape(t, n, -1), dim=-1)
         action_loss = -logp.gather(-1, corrected[..., None])[..., 0]
         action_loss = (weights * action_loss).sum(0) / weights.sum(0)
@@ -239,13 +238,13 @@ def train_step(policy, optimizer, observations, prev_actions, episode_masks,
         policy, observations, prev_actions, episode_masks, tour_masks,
         corrected, weights, rnn_states, use_progress, alpha,
     )
-    with record_function("backward"):
+    with profiling.span("backward"):
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
-    with record_function("optimizer"):
+    with profiling.span("optimizer"):
         optimizer.step()
     if update_map_bn:
-        with record_function("map_bn_stats"):
+        with profiling.span("map_bn_stats"):
             policy.net.map_encoder.update_running_stats(
                 observations["occupancy_map"], observations["semantic_map"]
             )
@@ -284,9 +283,12 @@ class BaseVLNCETrainer:
         self._generator = None
         self._pending_maps = None
         # policy steps and instruction bi-LSTM runs (once per episode
-        # change, not per step) over the trainer's evals
+        # change, not per step) over the trainer's evals, the rows those
+        # runs encoded and, of them, the rows whose tokens had changed
         self.policy_steps = 0
         self.instruction_encodes = 0
+        self.instruction_rows_encoded = 0
+        self.instruction_rows_changed = 0
         # training: the optimizer, and the train steps and their T*N rows
         self.optimizer = None
         self.checkpoint_writer = AsyncCheckpointWriter()
@@ -468,18 +470,19 @@ class BaseVLNCETrainer:
         model = self.config.MODEL
         update_map_bn = (model.policy_name == "MapCMAPolicy"
                          and model.SEMANTIC_MAP_ENCODER.trainable)
-        with profiling.wall_range("train_step"), \
-                profiling.range_context("train_step"):
+        with profiling.span("train_step"):
             if step is train_step:  # the data-parallel step uploads shards
-                batch = [{k: dev(v) for k, v in observations.items()},
-                         *map(dev, batch[1:])]
+                with profiling.span("upload"):
+                    batch = [{k: dev(v) for k, v in observations.items()},
+                             *map(dev, batch[1:])]
             loss, action_loss, aux_loss, rnn_out = step(
                 self.policy, self.optimizer, *batch, rnn_states,
                 model.PROGRESS_MONITOR.use, model.PROGRESS_MONITOR.alpha,
                 update_map_bn,
             )
-            losses = [float(x) for x in
-                      torch.stack([loss, action_loss, aux_loss]).cpu()]
+            with profiling.span("device_sync"):
+                losses = [float(x) for x in
+                          torch.stack([loss, action_loss, aux_loss]).cpu()]
         # the weights changed: cached per-episode instruction features are
         # stale
         self._txt_cache_tokens = None
@@ -547,47 +550,90 @@ class BaseVLNCETrainer:
         orientation and scene centres stay on the host; instruction tokens
         become cached features."""
         wire_keys = batching.wire_obs_keys(self.policy, transform)
-        dobs = {
-            k: self._expand_rows(v)
-            for k, v in batch.items()
-            if not (isinstance(v, list) and isinstance(v[0], str))
-            and k not in ("occupancy_map", "semantic_map")
-            and (wire_keys is None or k in wire_keys)
-        }
-        dobs = batching.encode_wire_obs(
-            dobs, self.config.TPU.wire_depth_uint16
-        )
-        for k, v in dobs.items():
-            if k not in batching.HOST_OBS_KEYS:
-                dobs[k] = torch.from_numpy(np.ascontiguousarray(v)).to(
-                    self.device
-                )
+        with profiling.span("wire_obs"):
+            dobs = {
+                k: self._expand_rows(v)
+                for k, v in batch.items()
+                if not (isinstance(v, list) and isinstance(v[0], str))
+                and k not in ("occupancy_map", "semantic_map")
+                and (wire_keys is None or k in wire_keys)
+            }
+            dobs = batching.encode_wire_obs(
+                dobs, self.config.TPU.wire_depth_uint16
+            )
+        with profiling.span("upload"):
+            for k, v in dobs.items():
+                if k not in batching.HOST_OBS_KEYS:
+                    dobs[k] = torch.from_numpy(np.ascontiguousarray(v)).to(
+                        self.device
+                    )
         return self._cache_instruction_features(dobs)
 
     def _cache_instruction_features(self, dobs):
         """Encode the instruction bi-LSTM once per episode: the tokens (or
         RxR's precomputed features) are compared on the host, and only on
-        a change (an episode boundary) uploaded and re-encoded; the step
-        reads the cached per-token features."""
+        a change (an episode boundary) uploaded and re-encoded, every row
+        of them; the step reads the cached per-token features."""
         key = next((k for k in ("instruction", "rxr_instruction")
                     if k in dobs), None)
         if key is None:
             return dobs
-        tokens = np.asarray(dobs[key])
-        if self._txt_cache_tokens is None or not np.array_equal(
-            tokens, self._txt_cache_tokens
-        ):
-            t = torch.from_numpy(tokens).to(self.device)
-            with record_function("instruction_encoder"):
-                self._txt_cache = self.policy.net.instruction_encoder(
-                    {key: t}
-                )
-            self._txt_cache_tokens = tokens.copy()
-            self.instruction_encodes += 1
-        dobs = dict(dobs)
-        del dobs[key]
-        dobs["instruction_features"] = self._txt_cache
+        with profiling.span("instruction_cache"):
+            tokens = np.asarray(dobs[key])
+            cached = self._txt_cache_tokens
+            if cached is None or not np.array_equal(tokens, cached):
+                with profiling.span("upload"):
+                    t = torch.from_numpy(tokens).to(self.device)
+                with profiling.span("instruction_encoder"):
+                    self._txt_cache = self.policy.net.instruction_encoder(
+                        {key: t}
+                    )
+                rows = len(tokens)
+                if cached is None or cached.shape != tokens.shape:
+                    changed = rows
+                else:
+                    changed = int((cached != tokens).reshape(rows, -1)
+                                  .any(1).sum())
+                self._txt_cache_tokens = tokens.copy()
+                self.instruction_encodes += 1
+                self.instruction_rows_encoded += rows
+                self.instruction_rows_changed += changed
+                profiling.count("instruction_rows_encoded", rows)
+                profiling.count("instruction_rows_changed", changed)
+            dobs = dict(dobs)
+            del dobs[key]
+            dobs["instruction_features"] = self._txt_cache
         return dobs
+
+    def _step_inputs(self, batch, reset_masks, rnn_states, prev_actions,
+                     masks):
+        """The host half of a policy or collection step: the lane map, the
+        transform's ``host_prepare``, the wire obs with the cached
+        instruction features, and the masks and previous actions on the
+        device. Returns (live rows, transform, obs, full-width previous
+        actions, full-width masks)."""
+        if self._lane_rows is None or rnn_states.shape[0] != self._num_rows:
+            self._reset_lanes(rnn_states.shape[0])
+        rows = self._lane_rows
+        transform = self.obs_transforms[0] if self.obs_transforms else None
+        if transform is not None:
+            # before the wire obs: host_prepare may add scene_center to the
+            # batch besides allocating state and preloading known maps
+            with profiling.span("host_prepare"):
+                transform.host_prepare(
+                    batch, np.asarray(reset_masks).reshape(-1), rows=rows,
+                    num_rows=self._num_rows,
+                )
+        obs = batching.decode_wire_obs(self._wire_device_obs(batch, transform))
+
+        def dev(a, dtype):
+            return torch.as_tensor(self._expand_rows(a), dtype=dtype,
+                                   device=self.device)
+
+        with profiling.span("upload"):
+            masks_full = [dev(m, torch.float32) for m in masks]
+            prev_full = dev(prev_actions, torch.int64)
+        return rows, transform, obs, prev_full, masks_full
 
     def _policy_step(self, batch, reset_masks, rnn_states, prev_actions,
                      masks, iterative: bool = True, need_maps: bool = False):
@@ -604,32 +650,15 @@ class BaseVLNCETrainer:
             profiling.maybe_start_trace(self.config, self.device)
         elif self.policy_steps == 23:
             profiling.maybe_stop_trace()
-        if self._lane_rows is None or rnn_states.shape[0] != self._num_rows:
-            self._reset_lanes(rnn_states.shape[0])
-        rows = self._lane_rows
-        transform = self.obs_transforms[0] if self.obs_transforms else None
-        if transform is not None:
-            # before the wire obs: host_prepare may add scene_center to the
-            # batch besides allocating state and preloading known maps
-            transform.host_prepare(
-                batch, np.asarray(reset_masks).reshape(-1), rows=rows,
-                num_rows=self._num_rows,
-            )
-        obs = batching.decode_wire_obs(self._wire_device_obs(batch, transform))
-
-        def dev(a, dtype):
-            return torch.as_tensor(self._expand_rows(a), dtype=dtype,
-                                   device=self.device)
-
-        masks_full = [dev(m, torch.float32) for m in masks]
-        prev_full = dev(prev_actions, torch.int64)
-        self._pending_maps = None
-        with profiling.range_context("policy_step"):
+        with profiling.span("policy_step"):
+            rows, transform, obs, prev_full, masks_full = self._step_inputs(
+                batch, reset_masks, rnn_states, prev_actions, masks)
+            self._pending_maps = None
             if transform is not None:
                 reset_full = self._expand_rows(
                     np.asarray(reset_masks, np.float32).reshape(-1, 1)
                 )
-                with record_function("mapper"):
+                with profiling.span("mapper"):
                     state, occ, sem = self._device_step(
                         transform.state, obs, reset_full.reshape(-1),
                         transform.rednet,
@@ -641,7 +670,8 @@ class BaseVLNCETrainer:
             act = self.policy.act_iterative if iterative else self.policy.act
             out = act(obs, rnn_states, prev_full, *masks_full,
                       generator=self._generator)
-            actions = out.actions.cpu().numpy()[rows]
+            with profiling.span("device_sync"):
+                actions = out.actions.cpu().numpy()[rows]
         return actions, out.rnn_states
 
     def _materialize_maps(self, batch) -> None:
@@ -828,16 +858,15 @@ class BaseVLNCETrainer:
             env_steps += envs.num_envs
             current_episodes = self._current_episode_info(envs)
             # the not-done masks restart the map and the GRUs
-            with profiling.wall_range("policy_step"):
-                actions, rnn_states = self._policy_step(
-                    batch, not_done_masks, rnn_states, prev_actions,
-                    (not_done_masks,), iterative=False, need_maps=videos,
-                )
+            actions, rnn_states = self._policy_step(
+                batch, not_done_masks, rnn_states, prev_actions,
+                (not_done_masks,), iterative=False, need_maps=videos,
+            )
             prev_actions = actions
             envs.step_async([int(a[0]) for a in actions])
-            with profiling.wall_range("materialize_maps"):
+            with profiling.span("materialize_maps"):
                 self._materialize_maps(batch)
-            with profiling.wall_range("env_step_wait"):
+            with profiling.span("env_step_wait"):
                 outputs = envs.step_wait()
             observations, _, dones, infos = (list(x) for x in zip(*outputs))
             not_done_masks = np.array(
@@ -877,7 +906,7 @@ class BaseVLNCETrainer:
                     )
                     rgb_frames[i] = []
 
-            with profiling.wall_range("batch_obs"):
+            with profiling.span("batch_obs"):
                 observations = self._extract_tokens(observations)
                 batch = batch_obs(observations)
 
@@ -970,21 +999,16 @@ class BaseVLNCETrainer:
             reset_masks = (
                 agent_masks if map_reset == "episodic" else tour_masks
             )
-            with profiling.wall_range("policy_step"):
-                actions, rnn_states = self._policy_step(
-                    batch, reset_masks, rnn_states, prev_actions,
-                    (agent_masks, sim_masks, tour_masks, action_masks),
-                    need_maps=videos,
-                )
-            # the JAX loop's host copy of the actions; the port's device
-            # readback falls inside policy_step
-            with profiling.wall_range("action_readback"):
-                actions = np.array(actions)
+            actions, rnn_states = self._policy_step(
+                batch, reset_masks, rnn_states, prev_actions,
+                (agent_masks, sim_masks, tour_masks, action_masks),
+                need_maps=videos,
+            )
             prev_actions = actions
             envs.step_async([int(a[0]) for a in actions])
-            with profiling.wall_range("materialize_maps"):
+            with profiling.span("materialize_maps"):
                 self._materialize_maps(batch)
-            with profiling.wall_range("env_step_wait"):
+            with profiling.span("env_step_wait"):
                 outputs = envs.step_wait()
             (
                 observations, _, agent_dones, sim_dones, tour_dones,
@@ -1051,7 +1075,7 @@ class BaseVLNCETrainer:
                 action_masks[i] = int(produce_action)
                 prev_actions[i] = 0
 
-            with profiling.wall_range("batch_obs"):
+            with profiling.span("batch_obs"):
                 observations = self._extract_tokens(observations)
                 batch = batch_obs(observations)
 

@@ -32,7 +32,7 @@ import torch
 from ivlnce_tpu_torch.envs.vector_env import construct_envs
 from ivlnce_tpu_torch.trainers.base_trainer import BaseVLNCETrainer
 from ivlnce_tpu_torch.trainers.trajectory_store import TrajectoryStore
-from ivlnce_tpu_torch.utils import batching, logging_util, profiling
+from ivlnce_tpu_torch.utils import logging_util, profiling
 from ivlnce_tpu_torch.utils.batching import batch_obs
 from ivlnce_tpu_torch.utils.prefetch import prefetch
 from ivlnce_tpu_torch.utils.registry import registry
@@ -435,11 +435,10 @@ class DaggerTrainer(BaseVLNCETrainer):
                 if envs.num_envs == 0:
                     break
 
-            with profiling.wall_range("policy_step"):
-                actions, rnn_states, features, batch = self._collect_step(
-                    batch, not_done_masks, rnn_states, prev_actions,
-                    (not_done_masks,), iterative=False,
-                )
+            actions, rnn_states, features, batch = self._collect_step(
+                batch, not_done_masks, rnn_states, prev_actions,
+                (not_done_masks,), iterative=False,
+            )
 
             expert_actions = np.asarray(batch[expert_uuid]).reshape(-1, 1)
             mix = rng.random(actions.shape) < beta
@@ -466,13 +465,13 @@ class DaggerTrainer(BaseVLNCETrainer):
             skips = (expert_actions.reshape(-1) == -1)
             prev_actions = step_actions
 
-            with profiling.wall_range("env_step_wait"):
+            with profiling.span("env_step_wait"):
                 outputs = envs.step_wait()
             observations, _, dones, _ = (list(x) for x in zip(*outputs))
             not_done_masks = np.array(
                 [[0] if d else [1] for d in dones], np.uint8
             )
-            with profiling.wall_range("batch_obs"):
+            with profiling.span("batch_obs"):
                 observations = self._extract_tokens(observations)
                 batch = batch_obs(observations)
 
@@ -507,7 +506,7 @@ class DaggerTrainer(BaseVLNCETrainer):
             feats["depth_features"] = net.depth_encoder(obs["depth"])
         if (cfg.policy_name == "LatentCMAPolicy"
                 and not cfg.RGB_ENCODER.trainable and "rgb" in obs):
-            with torch.profiler.record_function("rgb_encoder"):
+            with profiling.span("rgb_encoder"):
                 feats["rgb_features"] = net.rgb_encoder(obs["rgb"])
         return feats
 
@@ -521,33 +520,18 @@ class DaggerTrainer(BaseVLNCETrainer):
         actions (live, 1), full-width rnn_states on the device, live-lane
         features, ``batch`` with the live lanes' maps)."""
         self.collection_steps += 1
-        if self._lane_rows is None or rnn_states.shape[0] != self._num_rows:
-            self._reset_lanes(rnn_states.shape[0])
-        rows = self._lane_rows
-        self.collection_env_steps += len(rows)
-        transform = self.obs_transforms[0] if self.obs_transforms else None
-        if transform is not None:
-            transform.host_prepare(
-                batch, np.asarray(reset_masks).reshape(-1), rows=rows,
-                num_rows=self._num_rows,
-            )
-        obs = batching.decode_wire_obs(self._wire_device_obs(batch, transform))
-
-        def dev(a, dtype):
-            return torch.as_tensor(self._expand_rows(a), dtype=dtype,
-                                   device=self.device)
-
-        masks_full = [dev(m, torch.float32) for m in masks]
-        prev_full = dev(prev_actions, torch.int64)
-        with profiling.range_context("collect_step"):
-            with torch.profiler.record_function("encoders"):
+        with profiling.span("collect_step"):
+            rows, transform, obs, prev_full, masks_full = self._step_inputs(
+                batch, reset_masks, rnn_states, prev_actions, masks)
+            self.collection_env_steps += len(rows)
+            with profiling.span("encoders"):
                 feats = self._encode_feats(obs)
             pobs = dict(obs, **feats)
             if transform is not None:
                 reset_full = self._expand_rows(
                     np.asarray(reset_masks, np.float32).reshape(-1, 1)
                 )
-                with torch.profiler.record_function("mapper"):
+                with profiling.span("mapper"):
                     state, occ, sem = self._device_step(
                         transform.state, obs, reset_full.reshape(-1),
                         transform.rednet,
@@ -561,7 +545,8 @@ class DaggerTrainer(BaseVLNCETrainer):
             fetch = [out.actions] + [feats[k] for k in keys]
             if transform is not None:
                 fetch += [occ, sem]
-            got = _to_host(fetch)
+            with profiling.span("device_sync"):
+                got = _to_host(fetch)
         features = {k: got[1 + i][rows] for i, k in enumerate(keys)}
         if transform is not None:
             batch["occupancy_map"] = got[-2][rows]

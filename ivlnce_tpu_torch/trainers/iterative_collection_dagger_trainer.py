@@ -146,12 +146,11 @@ class IterativeCollectionDaggerTrainer(DaggerTrainer):
 
             # map reset masks are TOUR masks: maps persist across the
             # episodes of a tour during collection (reference :131-397)
-            with profiling.wall_range("policy_step"):
-                actions, rnn_states, features, batch = self._collect_step(
-                    batch, tour_masks, rnn_states, prev_actions,
-                    (agent_masks, sim_masks, tour_masks, action_masks),
-                    iterative=True,
-                )
+            actions, rnn_states, features, batch = self._collect_step(
+                batch, tour_masks, rnn_states, prev_actions,
+                (agent_masks, sim_masks, tour_masks, action_masks),
+                iterative=True,
+            )
 
             expert_actions = np.asarray(batch[expert_uuid]).reshape(-1, 1)
             mix = rng.random(actions.shape) < beta
@@ -185,7 +184,7 @@ class IterativeCollectionDaggerTrainer(DaggerTrainer):
             skips = expert_actions.reshape(-1) == -1
             prev_actions = step_actions
 
-            with profiling.wall_range("env_step_wait"):
+            with profiling.span("env_step_wait"):
                 outputs = envs.step_wait()
             (
                 observations, _, agent_dones, sim_episode_dones, tour_dones,
@@ -205,7 +204,7 @@ class IterativeCollectionDaggerTrainer(DaggerTrainer):
                 [[int(p)] for p in produce_actions], np.uint8
             )
 
-            with profiling.wall_range("batch_obs"):
+            with profiling.span("batch_obs"):
                 observations = self._extract_tokens(observations)
                 batch = batch_obs(observations)
 

@@ -1,32 +1,37 @@
 """Tracing and host-phase timing: the PyTorch counterpart of
-``ivlnce_tpu/utils/profiling.py``.
+``ivlnce_tpu/utils/profiling.py``, with one span API.
 
-- ``range_context(name)``: ``torch.profiler.record_function``, a named
-  range on the host timeline and, under a CUDA trace, on the device's;
+- ``span(name)``: a named range of host code. While a ``torch.profiler``
+  capture records, it is a ``torch.profiler.record_function`` range (on
+  the same clock as the card's kernels and copies in the trace) and adds
+  its host time to ``traced()``'s table; with ``IVLNCE_PHASE_TIMES`` set
+  in the environment at import, the outermost spans add their wall time
+  to the phase report. Otherwise it does nothing but count its depth;
+- ``count(name, n)``: adds ``n`` to ``traced()``'s counters while a
+  capture records;
+- ``traced()``: the host time of each span name and the counters over
+  the capture that records now, or over the last one: the tables
+  restart at the first span or count under a capture after one outside
+  it;
 - ``maybe_start_trace(config, device)`` / ``maybe_stop_trace()``: an
   on-demand ``torch.profiler`` capture, controlled by the config's
   ``TPU.profile_dir`` (empty = off) or the ``IVLNCE_PROFILE_DIR``
   environment variable; the stop writes a Chrome trace (JSON) there;
-- ``wall_range(name)``, ``phase_report()``, ``reset_phases()``: coarse
-  per-phase wall times of the eval loops, on when ``IVLNCE_PHASE_TIMES``
-  is set in the environment at import.
+- ``phase_report()``, ``reset_phases()``: the per-phase wall times of the
+  outermost spans (the eval, collection and training loops' phases).
 """
 
 from __future__ import annotations
 
-import contextlib
 import os
 import time as _time
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 _profiler = None
 _profiler_dir: Optional[str] = None
-
-
-def range_context(name: str):
-    return torch.profiler.record_function(name)
+_recording = torch._C._autograd._profiler_enabled
 
 
 def profile_dir_from(config=None) -> Optional[str]:
@@ -71,26 +76,76 @@ def maybe_stop_trace() -> Optional[str]:
     return path
 
 
-# -- wall-clock phase accounting ---------------------------------------------
-# The eval loops accumulate coarse per-phase wall times here. Enabled by
-# the IVLNCE_PHASE_TIMES env var; when disabled it is a no-op context.
-_phase_times: dict = {}
-_phase_counts: dict = {}
+# -- spans ---------------------------------------------------------------
+_phase_times: Dict[str, float] = {}  # s per outermost span name
+_phase_counts: Dict[str, int] = {}
+_traced_us: Dict[str, float] = {}  # host µs per span name under a capture
+_traced_counts: Dict[str, int] = {}
 _PHASES_ON = bool(os.environ.get("IVLNCE_PHASE_TIMES"))
+_depth = 0  # spans open now
+_capturing = False  # the last span or count ran under a capture
 
 
-@contextlib.contextmanager
-def wall_range(name: str):
-    if not _PHASES_ON:
-        yield
-        return
-    t0 = _time.perf_counter()
-    try:
-        yield
-    finally:
-        dt = _time.perf_counter() - t0
-        _phase_times[name] = _phase_times.get(name, 0.0) + dt
-        _phase_counts[name] = _phase_counts.get(name, 0) + 1
+def _under_capture() -> bool:
+    """Whether a capture records now; the traced tables restart when one
+    has begun since the last span or count."""
+    global _capturing
+    now = _recording()
+    if now and not _capturing:
+        _traced_us.clear()
+        _traced_counts.clear()
+    _capturing = now
+    return now
+
+
+class span:
+    """A named range of host code (see the module's docstring). A span
+    opened under a capture is recorded whole, even if the capture stops
+    inside it; a name should not nest in itself."""
+
+    __slots__ = ("name", "_range", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        global _depth
+        self._range = self._t0 = None
+        if _under_capture():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+            self._t0 = _time.perf_counter()
+        elif _PHASES_ON and _depth == 0:
+            self._t0 = _time.perf_counter()
+        _depth += 1
+        return self
+
+    def __exit__(self, *exc):
+        global _depth
+        _depth -= 1
+        if self._t0 is None:
+            return False
+        dt = _time.perf_counter() - self._t0
+        if self._range is not None:
+            _traced_us[self.name] = _traced_us.get(self.name, 0.0) + dt * 1e6
+            self._range.__exit__(*exc)
+        if _PHASES_ON and _depth == 0:
+            _phase_times[self.name] = _phase_times.get(self.name, 0.0) + dt
+            _phase_counts[self.name] = _phase_counts.get(self.name, 0) + 1
+        return False
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to counter ``name`` while a capture records."""
+    if _under_capture():
+        _traced_counts[name] = _traced_counts.get(name, 0) + int(n)
+
+
+def traced() -> Dict[str, Dict]:
+    """What the spans and counters recorded under the current or last
+    capture: ``host_us`` (host µs per span name, children included) and
+    ``counts``."""
+    return {"host_us": dict(_traced_us), "counts": dict(_traced_counts)}
 
 
 def phase_report() -> str:

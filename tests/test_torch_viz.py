@@ -2,9 +2,10 @@
 frames (``utils/viz.py``), the top-down map measure on FakeSim
 (``tasks/maps.py`` through ``TOP_DOWN_MAP_VLNCE``), with ``cv2`` and with
 its fallbacks (``cv2`` set to None in both packages' modules, as on a
-machine without it); the host-phase timers (``utils/profiling.py``, as
-``tests/test_profiling.py`` holds the JAX package's); the on-demand
-trace; and both policies built for bfloat16."""
+machine without it); the spans and the host-phase report
+(``utils/profiling.py``, as ``tests/test_profiling.py`` holds the JAX
+package's timers); the on-demand trace; and both policies built for
+bfloat16."""
 
 import os
 import pickle
@@ -163,22 +164,25 @@ def test_generate_video_writes_what_jax_writes(tmp_path):
     assert len(names) == 1 and names[0].startswith("episode=ep1-ckpt=0")
 
 
-# -- host-phase timers (tests/test_profiling.py's cases) -----------------------
+# -- spans and the host-phase report (tests/test_profiling.py's cases) -----
 def test_wall_range_disabled_is_noop(monkeypatch):
+    """A span without ``IVLNCE_PHASE_TIMES`` and outside a capture
+    records nothing (the JAX package's ``wall_range`` case)."""
     monkeypatch.setattr(profiling, "_PHASES_ON", False)
     profiling.reset_phases()
-    with profiling.wall_range("x"):
+    with profiling.span("x"):
         pass
     assert profiling.phase_report() == ""
+    assert profiling._depth == 0
 
 
 def test_wall_range_accumulates_and_reports(monkeypatch):
     monkeypatch.setattr(profiling, "_PHASES_ON", True)
     profiling.reset_phases()
     for _ in range(3):
-        with profiling.wall_range("alpha"):
+        with profiling.span("alpha"):
             pass
-    with profiling.wall_range("beta"):
+    with profiling.span("beta"):
         pass
     report = profiling.phase_report()
     assert "alpha=" in report and "/3" in report
@@ -191,10 +195,59 @@ def test_wall_range_counts_exceptions(monkeypatch):
     monkeypatch.setattr(profiling, "_PHASES_ON", True)
     profiling.reset_phases()
     with pytest.raises(RuntimeError):
-        with profiling.wall_range("boom"):
+        with profiling.span("boom"):
             raise RuntimeError
     assert "boom=" in profiling.phase_report()
+    assert profiling._depth == 0
     profiling.reset_phases()
+
+
+def test_nested_spans_count_once_in_the_phase_report(monkeypatch):
+    """Only the outermost span adds its wall time to the report, so the
+    report's shares add up to the loop's time once."""
+    monkeypatch.setattr(profiling, "_PHASES_ON", True)
+    profiling.reset_phases()
+    for _ in range(2):
+        with profiling.span("outer"):
+            with profiling.span("inner"):
+                with profiling.span("innermost"):
+                    pass
+            with profiling.span("inner"):
+                pass
+    assert set(profiling._phase_times) == {"outer"}
+    assert profiling._phase_counts == {"outer": 2}
+    assert "inner" not in profiling.phase_report()
+    profiling.reset_phases()
+
+
+def test_spans_and_counts_under_a_capture(monkeypatch):
+    """Under a ``torch.profiler`` capture every span is a range of the
+    trace and adds its host time, children included, to ``traced()``;
+    ``count`` adds there too. Outside a capture neither records, and the
+    tables restart with the next capture."""
+    monkeypatch.setattr(profiling, "_PHASES_ON", False)
+    with profiling.span("before"):
+        profiling.count("rows", 5)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(2):
+            with profiling.span("outer"):
+                with profiling.span("inner"):
+                    torch.ones(4).sum()
+                profiling.count("rows", 3)
+    with profiling.span("after"):
+        profiling.count("rows", 7)
+    got = profiling.traced()
+    assert set(got["host_us"]) == {"outer", "inner"}
+    assert got["host_us"]["outer"] >= got["host_us"]["inner"] > 0
+    assert got["counts"] == {"rows": 6}
+    names = [e.name for e in prof.events()]
+    assert names.count("outer") == 2 and names.count("inner") == 2
+    with torch.profiler.profile(activities=acts):
+        with profiling.span("next"):
+            pass
+    assert set(profiling.traced()["host_us"]) == {"next"}
+    assert profiling.traced()["counts"] == {}
 
 
 def test_phase_times_are_read_from_the_environment_at_import():
@@ -226,7 +279,7 @@ def test_trace_window_writes_a_chrome_trace(tmp_path, monkeypatch):
     assert profiling.maybe_start_trace(config, "cpu")
     assert not profiling.maybe_start_trace(config, "cpu")  # already open
     for _ in range(3):
-        with profiling.range_context("policy_step"):
+        with profiling.span("policy_step"):
             torch.ones(4).sum()
     path = profiling.maybe_stop_trace()
     assert profiling.maybe_stop_trace() is None
