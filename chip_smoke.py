@@ -142,7 +142,20 @@ Phases (any failure ends the run with a nonzero exit):
    ``--data-parallel`` adds phase 19 after phase 17: with four cards 19a
    and 19c over cuda:0..3 as (2, 2) and (1, 4), and 19b over cuda:0..3
    (row 1's K1 and K2 on cuda:2); ``--model-axis`` runs phase 19 alone
-   on a seeded batch.
+   on a seeded batch;
+20. the instruction bi-LSTM kernel (K5, ``csrc/instruction_lstm.cu``,
+   ``models/rnn.py::bi_lstm_rows``) at the cells' widths (embedding 50,
+   hidden 128, 200 tokens, a 256-lane cache): against its plain version
+   on the card at k = 5 and k = 256 changed rows of 10-80 tokens and at
+   k = 256 of 0-200 (0, 1 and 200 among them), every feature within
+   2e-6 and the other rows untouched; timed at k = 5 and k = 256 (CUDA
+   events): the kernel, the whole ``RowEncoder`` call (host, the tokens'
+   upload and the kernel), the plain version, one
+   cuDNN ``bi_lstm_padded`` on the same rows (``library_ms``: the call
+   the cache no longer makes) and the bound; its launches in phase 6's
+   eval, one per instruction encode, as in every ``run_exp`` eval.
+   ``--instruction-lstm`` runs phase 20 alone, after a short MapCMA eval
+   (phase 6's, one tour per lane).
 
 Prints the kernels as one JSON line and, last, the device as JSON.
 Imports nothing of JAX.
@@ -1454,6 +1467,7 @@ def phase_end_to_end(card: str, tmp: str, ckpt: str, path: str,
     """``run_exp`` eval of one path on the card (outputs under
     ``tmp/run``, ``run`` defaulting to the path's name), the launch
     counters set to 0 just before and read just after."""
+    from ivlnce_tpu_torch.models import rnn as R
     from ivlnce_tpu_torch.ops import scatter as S
     from ivlnce_tpu_torch.run import run_exp
 
@@ -1466,6 +1480,7 @@ def phase_end_to_end(card: str, tmp: str, ckpt: str, path: str,
     stamps, unstamp = _step_stamps()
     torch.cuda.reset_peak_memory_stats()
     S.launches.reset()
+    R.launches.reset()
     t0 = time.perf_counter()
     try:
         trainer = run_exp(config, "eval", opts, device="cuda")
@@ -1476,6 +1491,7 @@ def phase_end_to_end(card: str, tmp: str, ckpt: str, path: str,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: getattr(S.launches, k) for k in KERNELS}
+    lstm_launches = R.launches.bi_lstm_rows
 
     prefix = "" if episodic else "iterative_"
     with open(os.path.join(results,
@@ -1507,7 +1523,9 @@ def phase_end_to_end(card: str, tmp: str, ckpt: str, path: str,
             if len(stamps) > TRACE_SKIP + 1 else None),
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "launches": launches,
+        "lstm_launches": lstm_launches,
         "instruction_encodes": trainer.instruction_encodes,
+        "instruction_rows_encoded": trainer.instruction_rows_encoded,
         "episodes": trainer.episodes_evaluated,
         "host_phases": host_phases(trainer),
         "stats": stats,
@@ -1533,8 +1551,14 @@ def phase_end_to_end(card: str, tmp: str, ckpt: str, path: str,
           f"{summary['warm_wall_ms_per_step']}); {summary['policy']} with "
           f"{summary['recurrent_layers']} recurrent layers, instruction "
           f"encodes {trainer.instruction_encodes}")
-    print(f"  launches: {launches}; peak memory "
-          f"{summary['peak_memory_bytes']} bytes")
+    print(f"  launches: {launches}, instruction_lstm_rows "
+          f"{lstm_launches} ({trainer.instruction_rows_encoded} rows "
+          f"encoded); peak memory {summary['peak_memory_bytes']} bytes")
+    # every instruction encode of the eval is one launch of K5
+    if lstm_launches != trainer.instruction_encodes or lstm_launches == 0:
+        raise SystemExit(f"{lstm_launches} instruction_lstm_rows launches "
+                         f"for {trainer.instruction_encodes} instruction "
+                         f"encodes on the {path} path")
     print(f"  host phases [{card}] {run}, of {trainer.eval_seconds:.4f} s: "
           + ", ".join(f"{k} {v['s']:.4f} s ({100 * v['share']:.2f}%, "
                       f"{v['spans']} spans)"
@@ -3746,6 +3770,164 @@ def phase_orbax(card: str, tmp: str) -> dict:
     return out
 
 
+# -- phase 20: the instruction bi-LSTM kernel (K5) ----------------------------
+LSTM_LANES, LSTM_TOKENS = 256, 200  # map_cma.tour_eval's lanes; max_length
+LSTM_TOL = 2e-6
+LSTM_TIMED = 20  # timed calls per version
+
+
+def _lstm_case(encoder, lengths: np.ndarray, rng) -> tuple:
+    """len(lengths) changed rows of a 256-lane cache with these lengths:
+    (host tokens and rows; on the card the tokens cut to the longest,
+    lengths, rows and full-length embedded inputs)."""
+    dev = torch.device("cuda")
+    k = len(lengths)
+    tokens = np.zeros((k, LSTM_TOKENS), np.int64)
+    for i, n in enumerate(lengths):
+        tokens[i, :n] = rng.integers(1, encoder.config.vocab_size, n)
+    rows = np.sort(rng.choice(LSTM_LANES, k, replace=False))
+    cut = torch.from_numpy(tokens[:, :int(lengths.max())]).to(dev)
+    full = encoder.embedding_layer(torch.from_numpy(tokens).to(dev))
+    return (tokens, rows, cut,
+            torch.from_numpy(lengths.astype(np.int64)).to(dev),
+            torch.from_numpy(rows).to(dev), full)
+
+
+def _median_ms(fn, waits_on_card: bool = False) -> float:
+    fn()
+    torch.cuda.synchronize()
+    return float(np.median([cuda_ms(fn, waits_on_card)
+                            for _ in range(LSTM_TIMED)]))
+
+
+def phase_instruction_lstm(card: str) -> dict:
+    """Phase 20 (see the module's docstring): returns the worst
+    difference and, per timed k, the times and the bound."""
+    from ivlnce_tpu_torch.config import get_config
+    from ivlnce_tpu_torch.models import rnn as R
+    from ivlnce_tpu_torch.models.instruction_encoder import (
+        InstructionEncoder, RowEncoder)
+    from ivlnce_tpu_torch.ops import kernels
+
+    config = get_config(CONFIG, [
+        "MODEL.INSTRUCTION_ENCODER.vocab_size", "2504",
+        "MODEL.INSTRUCTION_ENCODER.final_state_only", "False",
+    ]).MODEL.INSTRUCTION_ENCODER
+    torch.manual_seed(SEED)
+    encoder = InstructionEncoder(config).cuda().eval()
+    hidden = config.hidden_size
+    rng = np.random.default_rng(SEED)
+    edge = rng.integers(0, LSTM_TOKENS + 1, LSTM_LANES)
+    edge[:3] = (0, 1, LSTM_TOKENS)
+    cases = {  # the cells draw 10-80 tokens
+        "k5": rng.integers(10, 81, 5),
+        "k256": rng.integers(10, 81, LSTM_LANES),
+        "k256_0_200": edge,
+    }
+    out = {"card": card, "max_abs_err": 0.0}
+    kernels.lstm_library()
+    for raw in kernels.lstm_build_log.splitlines():
+        if "Used" in raw or "spill" in raw:
+            print(f"  ptxas: {raw.strip()}")
+    with torch.no_grad():
+        rows_encoder = RowEncoder(encoder)
+        table, w_hh_t = rows_encoder.table, rows_encoder.w_hh_t
+        for name, lengths in cases.items():
+            host_tokens, host_rows, cut, lens, rows, full = _lstm_case(
+                encoder, lengths, rng)
+            start = torch.from_numpy(rng.normal(size=(
+                LSTM_LANES, LSTM_TOKENS, 2 * hidden)).astype(
+                    np.float32)).cuda()
+            got, want = start.clone(), start.clone()
+            before = R.launches.bi_lstm_rows
+            R.bi_lstm_rows(table, cut, w_hh_t, lens, rows, got)
+            R.bi_lstm_rows_plain(table, cut, w_hh_t, lens, rows, want)
+            torch.cuda.synchronize()
+            if R.launches.bi_lstm_rows != before + 1:
+                raise SystemExit("bi_lstm_rows did not launch its kernel")
+            err = float((got - want).abs().max())
+            others = torch.ones(LSTM_LANES, dtype=torch.bool, device="cuda")
+            others[rows] = False
+            untouched = bool(torch.equal(got[others], start[others]))
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            print(f"  {name}: {len(lengths)} rows of {int(lengths.min())}-"
+                  f"{int(lengths.max())} tokens, kernel vs plain max abs "
+                  f"diff {err}, other rows untouched {untouched}")
+            if err > LSTM_TOL or not untouched:
+                raise SystemExit(f"K5 disagrees with its plain version "
+                                 f"({name})")
+            if name == "k256_0_200":
+                continue
+            flops = 2 * int(lengths.sum()) * 2 * 4 * hidden * hidden
+            timed = {
+                "rows": len(lengths),
+                "tokens": int(lengths.sum()),
+                "longest": int(lengths.max()),
+                "ms": _median_ms(lambda: R.bi_lstm_rows(
+                    table, cut, w_hh_t, lens, rows, got)),
+                # the host's part and the tokens' upload included
+                "encode_wall_ms": _median_ms(lambda: rows_encoder(
+                    host_tokens, host_rows, got), waits_on_card=True),
+                "plain_ms": _median_ms(lambda: R.bi_lstm_rows_plain(
+                    table, cut, w_hh_t, lens, rows, want),
+                    waits_on_card=True),
+                # cuDNN on the same rows, its lengths' read included
+                "library_ms": _median_ms(lambda: R.bi_lstm_padded(
+                    encoder.encoder_rnn, full, lens), waits_on_card=True),
+                "flops": flops,
+                "bound_ms": flops / FP32_FLOPS * 1e3,
+            }
+            t1 = time.perf_counter()
+            for _ in range(LSTM_TIMED):
+                rows_encoder(host_tokens, host_rows, got)
+            timed["encode_host_ms"] = ((time.perf_counter() - t1) * 1e3
+                                       / LSTM_TIMED)
+            torch.cuda.synchronize()
+            out[name] = timed
+            print(f"  {name} [{card}]: kernel {timed['ms']:.4f} ms, whole "
+                  f"RowEncoder call {timed['encode_wall_ms']:.4f} ms "
+                  f"({timed['encode_host_ms']:.4f} host ms to issue), "
+                  f"plain {timed['plain_ms']:.4f} ms, cuDNN bi_lstm_padded "
+                  f"{timed['library_ms']:.4f} ms, bound "
+                  f"{timed['bound_ms']:.4f} ms ({flops} float32 operations "
+                  f"at 67 TFLOP/s; a chain of {timed['longest']} steps)")
+    return out
+
+
+def instruction_lstm_only() -> int:
+    """``chip_smoke.py --instruction-lstm``: phase 20 alone, after a short
+    MapCMA eval through ``run_exp`` (phase 6's, one tour per lane), whose
+    K5 launches ``phase_end_to_end`` counts."""
+    os.environ["IVLNCE_PHASE_TIMES"] = "1"
+    from ivlnce_tpu_torch.config import get_config
+    from ivlnce_tpu_torch.ops import kernels
+    from ivlnce_tpu_torch.trainers.base_trainer import save_checkpoint
+    from ivlnce_tpu_torch.utils.device import resolve_device
+
+    t_start = time.perf_counter()
+    resolve_device("cuda")  # TF32 off
+    card = card_line()
+    print(card)
+    kernels.library()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpt.0.pth")
+        save_checkpoint(seeded_policy(get_config(CONFIG)),
+                        get_config(CONFIG), ckpt)
+        print("phase 6: a short iterative eval through run_exp")
+        e2e = phase_end_to_end(card, tmp, ckpt, "iterative",
+                               one_tour_per_lane(tmp))
+    print("phase 20: the instruction bi-LSTM kernel (K5)")
+    lstm = phase_instruction_lstm(card)
+    lstm["launches"] = e2e["lstm_launches"]
+    print(json.dumps({"instruction_lstm": lstm,
+                      "seconds": time.perf_counter() - t_start}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def orbax_only() -> int:
     """``chip_smoke.py --orbax``: phase 18 alone, after the kernels'
     build (phase 2), as in the whole run."""
@@ -3830,6 +4012,8 @@ def main() -> int:
         return model_axis_only()
     if sys.argv[1:] == ["--orbax"]:
         return orbax_only()
+    if sys.argv[1:] == ["--instruction-lstm"]:
+        return instruction_lstm_only()
     # the port reads the host-phase switch at import (phase 13c)
     os.environ["IVLNCE_PHASE_TIMES"] = "1"
     from ivlnce_tpu_torch.ops import kernels
@@ -3999,6 +4183,10 @@ def main() -> int:
         model_axis = phase_model_axis(
             card, tmp, dp_store_batch(training["train_map_cma"]["store"]))
 
+    phase("phase 20: the instruction bi-LSTM kernel (K5)")
+    lstm = phase_instruction_lstm(card)
+    lstm["launches"] = e2e["iterative"]["lstm_launches"]
+
     # each kernel's launches come from the path that runs it
     kernel_path = {"accumulate": "iterative", "rasterize": "iterative",
                    "known_load": "known"}
@@ -4040,6 +4228,21 @@ def main() -> int:
         entry["walks"] = {w: {f: v[k][f] for f in ("ms", "plain_ms",
                                                    "bound_ms", "pass_ms")}
                           for w, v in walks_timed.items()}
+    line["kernels"].append({
+        "name": "instruction_lstm_rows",
+        "route": "cuda",
+        "source": "ivlnce_tpu_torch/csrc/instruction_lstm.cu",
+        "replaces": None,  # JAX's bi_lstm_padded is an XLA scan
+        "launches": lstm["launches"],
+        "max_abs_err": lstm["max_abs_err"],
+        "match": lstm["max_abs_err"] <= LSTM_TOL,
+        **{f: lstm["k256"][f] for f in ("ms", "plain_ms", "bound_ms",
+                                        "library_ms")},
+        "bound_by": "flops",
+        "size": "k=256 of 256 lanes, 10-80 tokens, E 50, H 128",
+        "k5": lstm["k5"],
+        "launches_by_path": {p: v["lstm_launches"] for p, v in e2e.items()},
+    })
     entry = next(e for e in line["kernels"] if e["name"] == "known_load")
     entry["size"] = "B=64, 2^18 points per cloud, G=1024, the whole load"
     entry["touched_bound_ms"] = timing["known_load"]["touched_bound_ms"]
@@ -4054,6 +4257,7 @@ def main() -> int:
                       "orbax": orbax, "model_axis": model_axis,
                       "kernel_walks": walks_timed,
                       "known_load_timing": known_timed,
+                      "instruction_lstm": lstm,
                       "seconds": time.perf_counter() - t_start}))
     print(card)
     print(json.dumps(line))

@@ -4,7 +4,13 @@ instruction_encoder.py). Embedding (PAD = 0) -> bi-LSTM -> per-token
 features (B, 2H, T) with padded positions zeroed. With ``sensor_uuid``
 ``rxr_instruction`` there is no embedding: the bi-LSTM reads RxR's
 precomputed (T, embedding_size) features, and a row's length is the
-number of feature rows with any non-zero entry."""
+number of feature rows with any non-zero entry.
+
+``RowEncoder`` serves the eval step's per-episode cache
+(``trainers/base_trainer.py``): it writes the features of the rows that
+changed into a persistent (B, T, 2H) tensor in place
+(``models/rnn.py::bi_lstm_rows``), from lengths counted on the host.
+``forward`` (the IL update, with autograd) keeps ``bi_lstm_padded``."""
 
 from __future__ import annotations
 
@@ -17,7 +23,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ivlnce_tpu_torch.models.rnn import bi_lstm_padded
+from ivlnce_tpu_torch.models.rnn import bi_lstm_padded, bi_lstm_rows
+from ivlnce_tpu_torch.utils import profiling
 
 
 def load_embeddings(embedding_file: str) -> np.ndarray:
@@ -68,3 +75,60 @@ class InstructionEncoder(nn.Module):
         if self.config.final_state_only:
             return final
         return outputs.permute(0, 2, 1)
+
+
+class RowEncoder:
+    """``InstructionEncoder``'s per-token features for some rows of a
+    persistent (B, T, 2H) tensor, written in place by one launch
+    (``models/rnn.py::bi_lstm_rows``), from the encoder's weights as they
+    are when it is made: every token's input pre-activations of both
+    directions in one (vocab, 8H) table (RxR's features keep W_ih and the
+    biases for one matrix product per call) and each direction's W_hh laid
+    out [H][4H]. Make a new one whenever the weights change."""
+
+    def __init__(self, encoder: InstructionEncoder):
+        lstm = encoder.encoder_rnn
+        self.w_ih = torch.cat([lstm.weight_ih_l0, lstm.weight_ih_l0_reverse])
+        self.bias = torch.cat([
+            lstm.bias_ih_l0 + lstm.bias_hh_l0,
+            lstm.bias_ih_l0_reverse + lstm.bias_hh_l0_reverse])
+        self.table = None
+        if encoder.embedding_layer is not None:
+            self.table = torch.addmm(self.bias,
+                                     encoder.embedding_layer.weight,
+                                     self.w_ih.t())
+        self.w_hh_t = torch.stack([lstm.weight_hh_l0.t(),
+                                   lstm.weight_hh_l0_reverse.t()])
+
+    def __call__(self, inputs: np.ndarray, rows: np.ndarray,
+                 out: torch.Tensor) -> None:
+        """Rows ``rows`` of ``out`` as ``forward``'s (permuted) features of
+        the host ``inputs``: (k, T) tokens, or (k, T, F) RxR features. The
+        lengths are counted here, as ``forward`` counts them, and the
+        inputs are cut to the longest before they are uploaded: nothing is
+        read back from the card."""
+        rxr = self.table is None
+        nonzero = inputs != 0
+        lengths = (nonzero.any(2) if rxr else nonzero).sum(1)
+        k, tg = len(inputs), int(lengths.max())
+        cut = np.ascontiguousarray(inputs[:, :tg])
+        if rxr:  # the features' gates, one row per step, read in order
+            index = np.arange(k * tg)
+        elif cut.size and not 0 <= cut.min() <= cut.max() < len(self.table):
+            raise ValueError(f"instruction tokens outside the vocabulary of "
+                             f"{len(self.table)}")
+        else:
+            index = cut
+        with profiling.span("upload"):
+            ints = torch.from_numpy(np.concatenate(
+                [index.reshape(-1), rows, lengths]).astype(np.int64)
+            ).to(out.device)
+            gates = (torch.from_numpy(cut).to(out.device) if rxr
+                     else self.table)
+        if rxr:
+            gates = torch.addmm(self.bias,
+                                gates.reshape(k * tg, inputs.shape[2]).float(),
+                                self.w_ih.t())
+        n = k * tg
+        bi_lstm_rows(gates, ints[:n].view(k, tg), self.w_hh_t,
+                     lengths=ints[n + k:], rows=ints[n:n + k], out=out)

@@ -6,13 +6,18 @@
 module that holds its weights split over a mesh's model devices
 (``parallel/tensor.py``) computes the gate pre-activations ``gi`` and
 ``gh`` itself and runs the gate arithmetic here (``gru_gates``,
-``lstm_gates``: JAX's ``gru_cell`` and ``lstm_cell``)."""
+``lstm_gates``: JAX's ``gru_cell`` and ``lstm_cell``). The eval step's
+instruction cache re-encodes the rows that changed with ``bi_lstm_rows``:
+the plain recurrence on the CPU, one launch of the
+``csrc/instruction_lstm.cu`` kernel on the card."""
 
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
@@ -136,3 +141,102 @@ def bi_lstm_padded(
         empty[:, None], 0.0
     )
     return out, final
+
+
+class LaunchCounter:
+    """Launches of the ``bi_lstm_rows`` kernel; the plain version never
+    counts."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.bi_lstm_rows = 0
+
+
+launches = LaunchCounter()
+
+
+def _check_rows(gates: torch.Tensor, index: torch.Tensor,
+                w_hh_t: torch.Tensor, lengths: torch.Tensor,
+                rows: torch.Tensor, out: torch.Tensor) -> None:
+    h = w_hh_t.shape[1]
+    k, tg = index.shape
+    if (w_hh_t.shape != (2, h, 4 * h) or gates.ndim != 2
+            or gates.shape[1] != 8 * h or out.ndim != 3
+            or out.shape[2] != 2 * h or tg > out.shape[1]):
+        raise ValueError(f"bi_lstm_rows: gates {tuple(gates.shape)}, index "
+                         f"{tuple(index.shape)}, w_hh_t "
+                         f"{tuple(w_hh_t.shape)}, out {tuple(out.shape)}")
+    for name, t, dtype in (("gates", gates, torch.float32),
+                           ("index", index, torch.int64),
+                           ("w_hh_t", w_hh_t, torch.float32),
+                           ("lengths", lengths, torch.int64),
+                           ("rows", rows, torch.int64),
+                           ("out", out, torch.float32)):
+        if t.dtype != dtype:
+            raise TypeError(f"bi_lstm_rows: {name} {t.dtype}, not {dtype}")
+        if t.device != out.device:
+            raise ValueError(f"bi_lstm_rows: {name} on {t.device}, out on "
+                             f"{out.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"bi_lstm_rows: {name} must be contiguous")
+    if lengths.shape != (k,) or rows.shape != (k,):
+        raise ValueError(f"bi_lstm_rows: lengths {tuple(lengths.shape)}, "
+                         f"rows {tuple(rows.shape)} for {k} rows")
+
+
+def bi_lstm_rows_plain(gates: torch.Tensor, index: torch.Tensor,
+                       w_hh_t: torch.Tensor, lengths: torch.Tensor,
+                       rows: torch.Tensor, out: torch.Tensor) -> None:
+    """``bi_lstm_rows`` one step at a time (``bi_lstm_cells`` with
+    ``lstm_gates``), on any device."""
+    hidden = w_hh_t.shape[1]
+    g = 4 * hidden
+    if index.shape[1] == 0:  # every row empty
+        out.index_fill_(0, rows, 0.0)
+        return
+
+    def cell(w: torch.Tensor, lo: int) -> LSTMStep:
+        def step(x, h, c):
+            return lstm_gates(x[:, lo:lo + g], torch.matmul(h, w), c)
+        return step
+
+    feats, _ = bi_lstm_cells(cell(w_hh_t[0], 0), cell(w_hh_t[1], g),
+                             hidden, gates[index], lengths)
+    out.index_copy_(0, rows, F.pad(feats, (0, 0, 0, out.shape[1]
+                                             - feats.shape[1])))
+
+
+def bi_lstm_rows(gates: torch.Tensor, index: torch.Tensor,
+                 w_hh_t: torch.Tensor, lengths: torch.Tensor,
+                 rows: torch.Tensor, out: torch.Tensor) -> None:
+    """Rows ``rows`` of ``out`` (B, T, 2H), in place, as
+    ``bi_lstm_padded``'s outputs for those rows: the forward direction over
+    t < len, the backward one from each row's own last token down, zeros
+    at t >= len and for an empty row. Row r's input pre-activations at
+    step t are ``gates[index[r, t]]``: ``gates`` (V, 8H) holds
+    ``x W_ih^T + b_ih + b_hh``, the forward direction's 4H gates then the
+    backward one's, ``index`` (k, Tg), Tg <= T; ``w_hh_t`` (2, H, 4H): each
+    direction's W_hh transposed; ``lengths`` and ``rows`` (k,); every
+    index int64. CPU tensors run the plain version, CUDA tensors one
+    launch of the kernel."""
+    _check_rows(gates, index, w_hh_t, lengths, rows, out)
+    dev = out.device
+    if dev.type == "cpu":
+        bi_lstm_rows_plain(gates, index, w_hh_t, lengths, rows, out)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"bi_lstm_rows: unsupported device {dev}")
+    from ivlnce_tpu_torch.ops import kernels
+    from ivlnce_tpu_torch.ops.scatter import stream_arg
+
+    lib = kernels.lstm_library()
+    k, tg = index.shape
+    ptr = [ctypes.c_void_p(t.data_ptr())
+           for t in (gates, index, w_hh_t, lengths, rows, out)]
+    with torch.cuda.device(dev):
+        err = lib.instruction_lstm_rows(*ptr, k, tg, out.shape[1],
+                                        w_hh_t.shape[1], stream_arg(dev))
+    launches.bi_lstm_rows += 1
+    kernels.check(err, "instruction_lstm_rows")

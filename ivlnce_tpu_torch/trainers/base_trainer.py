@@ -36,6 +36,7 @@ from ivlnce_tpu_torch import parallel
 from ivlnce_tpu_torch.envs.vector_env import construct_envs_auto_reset_false
 from ivlnce_tpu_torch.mapping.obs_transforms import get_active_obs_transforms
 from ivlnce_tpu_torch.models import checkpoint_io as cio
+from ivlnce_tpu_torch.models import instruction_encoder as IE
 from ivlnce_tpu_torch.models.cma import progress_monitor_loss
 from ivlnce_tpu_torch.models.convert import params_from_jax
 from ivlnce_tpu_torch.models.orbax_io import load_orbax_checkpoint
@@ -571,9 +572,12 @@ class BaseVLNCETrainer:
 
     def _cache_instruction_features(self, dobs):
         """Encode the instruction bi-LSTM once per episode: the tokens (or
-        RxR's precomputed features) are compared on the host, and only on
-        a change (an episode boundary) uploaded and re-encoded, every row
-        of them; the step reads the cached per-token features."""
+        RxR's precomputed features) are compared on the host, and only the
+        rows that changed (every row with no cache, a new shape or lane
+        count, or after an IL update) are uploaded with their lengths,
+        counted on the host, and re-encoded in place into one persistent
+        (B, T, 2H) tensor; the step reads it as (B, 2H, T). Nothing is
+        read back from the card."""
         key = next((k for k in ("instruction", "rxr_instruction")
                     if k in dobs), None)
         if key is None:
@@ -581,25 +585,30 @@ class BaseVLNCETrainer:
         with profiling.span("instruction_cache"):
             tokens = np.asarray(dobs[key])
             cached = self._txt_cache_tokens
-            if cached is None or not np.array_equal(tokens, cached):
-                with profiling.span("upload"):
-                    t = torch.from_numpy(tokens).to(self.device)
+            rows = len(tokens)
+            encoder = self.policy.net.instruction_encoder
+            if cached is None or cached.shape != tokens.shape:
+                changed = np.arange(rows)
+                self._txt_store = torch.empty(
+                    (rows, tokens.shape[1],
+                     2 * encoder.encoder_rnn.hidden_size),
+                    dtype=torch.float32, device=self.device)
+                self._txt_cache = self._txt_store.permute(0, 2, 1)
+                # the weights may have changed since the last full encode
+                self._txt_encode = IE.RowEncoder(encoder)
+            else:
+                changed = np.flatnonzero(
+                    (cached != tokens).reshape(rows, -1).any(1))
+            if len(changed):
                 with profiling.span("instruction_encoder"):
-                    self._txt_cache = self.policy.net.instruction_encoder(
-                        {key: t}
-                    )
-                rows = len(tokens)
-                if cached is None or cached.shape != tokens.shape:
-                    changed = rows
-                else:
-                    changed = int((cached != tokens).reshape(rows, -1)
-                                  .any(1).sum())
+                    self._txt_encode(tokens[changed], changed,
+                                     self._txt_store)
                 self._txt_cache_tokens = tokens.copy()
                 self.instruction_encodes += 1
-                self.instruction_rows_encoded += rows
-                self.instruction_rows_changed += changed
-                profiling.count("instruction_rows_encoded", rows)
-                profiling.count("instruction_rows_changed", changed)
+                self.instruction_rows_encoded += len(changed)
+                self.instruction_rows_changed += len(changed)
+                profiling.count("instruction_rows_encoded", len(changed))
+                profiling.count("instruction_rows_changed", len(changed))
             dobs = dict(dobs)
             del dobs[key]
             dobs["instruction_features"] = self._txt_cache

@@ -1,0 +1,207 @@
+"""The eval step's per-episode instruction cache on the CPU
+(``trainers/base_trainer.py::_cache_instruction_features``,
+``models/instruction_encoder.py::RowEncoder``,
+``models/rnn.py::bi_lstm_rows``): over a sequence of token batches in
+which no row, one row, several rows and every row change, a lane pauses,
+the lane count changes and the cache is invalidated, the cached features
+equal a full ``InstructionEncoder.forward`` within 1e-6, only the changed
+rows are encoded, and nothing is read back from the device. The plain
+``bi_lstm_rows`` equals ``bi_lstm_padded`` on the same rows. Small widths:
+E 8, H 16, T 24, B 12. The kernel against the plain version on the card is
+in ``tests/test_torch_kernels.py``."""
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from ivlnce_tpu_torch.models.instruction_encoder import InstructionEncoder
+from ivlnce_tpu_torch.models.rnn import bi_lstm_padded, bi_lstm_rows
+from ivlnce_tpu_torch.trainers.base_trainer import BaseVLNCETrainer
+from ivlnce_tpu_torch.utils import profiling
+from tests.test_torch_train import one_torch_thread  # noqa: F401  (autouse)
+
+E, H, T, B = 8, 16, 24, 12
+VOCAB = 30
+TOL = 1e-6
+SENSORS = ("instruction", "rxr_instruction")
+
+
+@pytest.fixture(autouse=True)
+def record_restarts():
+    """A span outside any capture after each test, so the next capture's
+    record starts afresh (``profiling`` restarts its tables at the first
+    span under a capture after one outside it)."""
+    yield
+    with profiling.span("between_tests"):
+        pass
+
+
+def _encoder(sensor: str, seed: int = 0) -> InstructionEncoder:
+    torch.manual_seed(seed)
+    config = SimpleNamespace(
+        rnn_type="LSTM", sensor_uuid=sensor, use_pretrained_embeddings=False,
+        embedding_file="", vocab_size=VOCAB, embedding_size=E, hidden_size=H,
+        bidirectional=True, final_state_only=False)
+    return InstructionEncoder(config).eval()
+
+
+def _trainer(encoder: InstructionEncoder) -> BaseVLNCETrainer:
+    t = BaseVLNCETrainer.__new__(BaseVLNCETrainer)
+    t.policy = SimpleNamespace(
+        net=SimpleNamespace(instruction_encoder=encoder))
+    t.device = torch.device("cpu")
+    t._txt_cache_tokens = None
+    t.instruction_encodes = 0
+    t.instruction_rows_encoded = 0
+    t.instruction_rows_changed = 0
+    return t
+
+
+def _row(rng, sensor: str, length: int) -> np.ndarray:
+    """One row of ``length`` non-zero tokens (or feature rows), then
+    zeros."""
+    if sensor == "instruction":
+        row = np.zeros(T, np.int64)
+        row[:length] = rng.integers(1, VOCAB, length)
+    else:
+        row = np.zeros((T, E), np.float32)
+        row[:length] = rng.normal(size=(length, E))
+    return row
+
+
+def _batch(rng, sensor: str, lengths) -> np.ndarray:
+    return np.stack([_row(rng, sensor, n) for n in lengths])
+
+
+def _script(sensor: str):
+    """(tokens, rows encoded, whether the cache is invalidated first, as an
+    IL update does) per step."""
+    rng = np.random.default_rng(3)
+    a = _batch(rng, sensor, rng.integers(1, T + 1, B))
+    a[0] = _row(rng, sensor, T)
+    one = a.copy()
+    one[4] = _row(rng, sensor, 5)
+    several = one.copy()
+    several[0] = _row(rng, sensor, 2)  # was T long: its tail is cleared
+    several[7] = _row(rng, sensor, T)
+    several[9] = _row(rng, sensor, 1)
+    paused = several.copy()
+    paused[3] = 0  # a paused lane: all-zero tokens give zero features
+    every = _batch(rng, sensor, rng.integers(1, T + 1, B))
+    wider = np.concatenate([every, _batch(rng, sensor, [T, 3])])
+    return [(a, B, False), (a.copy(), 0, False), (one, 1, False),
+            (several, 3, False), (paused, 1, False), (every, B, False),
+            (wider, B + 2, False), (wider, B + 2, True), (wider, 0, False)]
+
+
+@pytest.mark.parametrize("sensor", SENSORS)
+def test_cache_equals_full_encode_over_a_token_sequence(sensor):
+    encoder = _encoder(sensor)
+    trainer = _trainer(encoder)
+    with torch.inference_mode():
+        for i, (tokens, encoded, invalidate) in enumerate(_script(sensor)):
+            if invalidate:
+                trainer._txt_cache_tokens = None
+            before = trainer.instruction_rows_encoded
+            out = trainer._cache_instruction_features({sensor: tokens})
+            assert sensor not in out
+            got = out["instruction_features"]
+            want = encoder({sensor: torch.from_numpy(tokens)})
+            assert got.shape == want.shape == (len(tokens), 2 * H, T), i
+            assert torch.allclose(got, want, rtol=0, atol=TOL), (
+                i, float((got - want).abs().max()))
+            assert trainer.instruction_rows_encoded - before == encoded, i
+            if i == 4:  # the paused lane
+                assert (got[3] == 0).all()
+    assert trainer.instruction_encodes == 7
+
+
+def _gates(lstm, x):
+    w = torch.cat([lstm.weight_ih_l0, lstm.weight_ih_l0_reverse])
+    b = torch.cat([lstm.bias_ih_l0 + lstm.bias_hh_l0,
+                   lstm.bias_ih_l0_reverse + lstm.bias_hh_l0_reverse])
+    return (torch.matmul(x, w.t()) + b).contiguous()
+
+
+def test_plain_bi_lstm_rows_equals_bi_lstm_padded():
+    lstm = _encoder("rxr_instruction").encoder_rnn
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(B, T, E)).astype(np.float32))
+    lengths = torch.tensor([0, 1, T, 7, 12, 3, T - 1, 2, 9, 1, 16, 5])
+    want, _ = bi_lstm_padded(lstm, x, lengths)
+    rows = torch.tensor([3, 0, 11, 6])
+    out = torch.full((B, T, 2 * H), 7.0)
+    # the rows first encoded at full length, then re-encoded shorter:
+    # the longer rows' tails must go
+    with torch.no_grad():
+        w_hh_t = torch.stack([lstm.weight_hh_l0.t(),
+                              lstm.weight_hh_l0_reverse.t()])
+        # gates of every (row, step), read through an index in order
+        gates = _gates(lstm, x).reshape(B * T, 8 * H)
+        index = torch.arange(B * T).reshape(B, T)
+        bi_lstm_rows(gates, index[rows].contiguous(), w_hh_t,
+                     torch.full((4,), T), rows, out)
+        keep = out.clone()
+        pick = torch.tensor([0, 1, 2, 4])
+        tg = int(lengths[pick].max())
+        bi_lstm_rows(gates, index[pick, :tg].contiguous(), w_hh_t,
+                     lengths[pick], rows, out)
+    assert torch.allclose(out[rows], want[pick], rtol=0, atol=TOL), float(
+        (out[rows] - want[pick]).abs().max())
+    assert (out[3] == 0).all()  # length 0
+    assert (out[6, 12:] == 0).all() and (out[6, :12] != 0).any()
+    others = torch.ones(B, dtype=torch.bool)
+    others[rows] = False
+    assert torch.equal(out[others], keep[others])
+    assert (out[others] == 7.0).all()
+
+
+def test_rows_encoded_counts_only_the_changed_rows():
+    """Under a capture the counters read the rows encoded: the changed
+    ones, every row after an invalidation."""
+    trainer = _trainer(_encoder("instruction"))
+    rng = np.random.default_rng(7)
+    a = _batch(rng, "instruction", rng.integers(1, T + 1, B))
+    b = a.copy()
+    b[[2, 5]] = _batch(rng, "instruction", [4, 9])
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.inference_mode():
+        trainer._cache_instruction_features({"instruction": a})
+        with torch.profiler.profile(activities=acts):
+            trainer._cache_instruction_features({"instruction": b})
+            trainer._cache_instruction_features({"instruction": b})
+        assert profiling.traced()["counts"] == {
+            "instruction_rows_encoded": 2, "instruction_rows_changed": 2}
+        trainer._txt_cache_tokens = None
+        trainer._cache_instruction_features({"instruction": b})
+    assert (trainer.instruction_encodes, trainer.instruction_rows_encoded,
+            trainer.instruction_rows_changed) == (3, B + 2 + B, B + 2 + B)
+
+
+def test_no_device_sync_inside_the_instruction_cache():
+    """The lengths come from the host tokens: no blocking read."""
+    trainer = _trainer(_encoder("instruction"))
+    rng = np.random.default_rng(9)
+    a = _batch(rng, "instruction", rng.integers(0, T + 1, B))
+    b = a.copy()
+    b[1] = _row(rng, "instruction", 6)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.inference_mode(), torch.profiler.profile(activities=acts):
+        trainer._cache_instruction_features({"instruction": a})
+        trainer._cache_instruction_features({"instruction": b})
+    host_us = profiling.traced()["host_us"]
+    assert {"instruction_cache", "instruction_encoder",
+            "upload"} <= set(host_us)
+    assert "device_sync" not in host_us
+
+
+def test_tokens_outside_the_vocabulary_are_refused():
+    """The kernel reads each token's gates by its id: an id outside the
+    table is refused on the host, before any upload."""
+    trainer = _trainer(_encoder("instruction"))
+    tokens = _batch(np.random.default_rng(11), "instruction", [3] * B)
+    tokens[2, 1] = VOCAB
+    with torch.inference_mode(), pytest.raises(ValueError, match="vocab"):
+        trainer._cache_instruction_features({"instruction": tokens})

@@ -1,5 +1,6 @@
-"""The port's CUDA mapper kernels against their plain PyTorch versions, on
-the card (marker ``cuda``; these skip where there is no card or no nvcc).
+"""The port's CUDA kernels (the mapper's K1-K3, the instruction bi-LSTM's
+K5) against their plain PyTorch versions, on the card (marker ``cuda``;
+these skip where there is no card or no nvcc).
 Run them on a machine with an NVIDIA GPU:
 
     python -m pytest tests/test_torch_kernels.py -q --noconftest
@@ -7,8 +8,10 @@ Run them on a machine with an NVIDIA GPU:
 (``--noconftest`` because tests/conftest.py sets up JAX, which a machine
 with the card need not have.)
 
-The outputs must be exactly equal (the kernels repeat the plain versions'
-float32 arithmetic operation for operation)."""
+The mapper kernels' outputs must be exactly equal (they repeat the plain
+versions' float32 arithmetic operation for operation); K5's features agree
+within 2e-6 (its sums run in another order than the plain version's
+matrix products)."""
 
 import math
 import os
@@ -273,3 +276,49 @@ def test_chip_smoke_times_the_card_not_the_host(card):
 
     assert chip_smoke.cuda_ms(slow_enqueue) < 0.5
     assert chip_smoke.cuda_ms(slow_enqueue, waits_on_card=True) >= 1.0
+
+
+@pytest.mark.parametrize("k", [5, 256])
+def test_instruction_lstm_equals_plain_version(card, k):
+    """K5 (``models/rnn.py::bi_lstm_rows``) writes k changed rows of a
+    256-row cache at 200 tokens, E 50, H 128, lengths 0-200 (0, 1 and 200
+    among them), reading each token's gates from a (vocab, 8H) table:
+    every feature within 2e-6 of the plain version, the other rows
+    untouched."""
+    from ivlnce_tpu_torch.models import rnn as R
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(0)
+    lstm = torch.nn.LSTM(50, 128, bidirectional=True, batch_first=True).to(
+        card)
+    embedding = torch.nn.Embedding(2504, 50, padding_idx=0).to(card)
+    rng = np.random.default_rng(k)
+    b, t = 256, 200
+    lengths = rng.integers(0, t + 1, k)
+    lengths[:3] = (0, 1, t)[:k]
+    tokens = np.zeros((k, t), np.int64)
+    for i, n in enumerate(lengths):
+        tokens[i, :n] = rng.integers(1, 2504, n)
+    rows = torch.from_numpy(rng.choice(b, k, replace=False)).to(card)
+    start = torch.from_numpy(rng.normal(size=(b, t, 256)).astype(
+        np.float32)).to(card)
+    kern, plain = start.clone(), start.clone()
+    index = torch.from_numpy(tokens).to(card)
+    lens = torch.from_numpy(lengths).to(card)
+    before = R.launches.bi_lstm_rows
+    with torch.no_grad():
+        w = torch.cat([lstm.weight_ih_l0, lstm.weight_ih_l0_reverse])
+        bias = torch.cat([lstm.bias_ih_l0 + lstm.bias_hh_l0,
+                          lstm.bias_ih_l0_reverse + lstm.bias_hh_l0_reverse])
+        table = torch.addmm(bias, embedding.weight, w.t())
+        w_hh_t = torch.stack([lstm.weight_hh_l0.t(),
+                              lstm.weight_hh_l0_reverse.t()])
+        R.bi_lstm_rows(table, index, w_hh_t, lens, rows, kern)
+        R.bi_lstm_rows_plain(table, index, w_hh_t, lens, rows, plain)
+    torch.cuda.synchronize()
+    assert R.launches.bi_lstm_rows == before + 1
+    assert float((kern - plain).abs().max()) <= 2e-6
+    others = torch.ones(b, dtype=torch.bool, device=card)
+    others[rows] = False
+    assert torch.equal(kern[others], start[others])
+    assert (kern[rows[0]] == 0).all()  # the empty row

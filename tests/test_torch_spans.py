@@ -89,14 +89,16 @@ def test_policy_step_spans_inside_one_policy_step(trainer):
         found = _ranges(prof, name)
         assert found, name
         assert all(step[0] <= s and e <= step[1] for s, e in found), name
-    # the uploads: the wire obs, the tokens, the masks and previous actions
+    # the uploads: the wire obs, the tokens with their rows and lengths,
+    # the masks and previous actions
     assert len(_ranges(prof, "upload")) == 3
-    # the actions' readback, and the bi-LSTM's lengths inside the encoder
+    # the actions' readback alone: the bi-LSTM's lengths come from the
+    # host tokens
     syncs = _ranges(prof, "device_sync")
     (encoder,) = _ranges(prof, "instruction_encoder")
-    assert len(syncs) == 2
-    assert sum(encoder[0] <= s and e <= encoder[1] for s, e in syncs) == 1
     (cache,) = _ranges(prof, "instruction_cache")
+    assert len(syncs) == 1
+    assert not any(cache[0] <= s and e <= cache[1] for s, e in syncs)
     assert cache[0] <= encoder[0] and encoder[1] <= cache[1]
     got = profiling.traced()
     assert got["counts"] == {"instruction_rows_encoded": LANES,
@@ -105,9 +107,9 @@ def test_policy_step_spans_inside_one_policy_step(trainer):
 
 
 def test_instruction_row_counts_on_scripted_tokens(trainer):
-    """Rows are counted at each encode only: every row is encoded, and
-    the changed rows are those that differ from the cached tokens (all of
-    them with no cache, or when the lane count changes)."""
+    """Rows are counted at each encode only: the changed rows, those that
+    differ from the cached tokens (all of them with no cache, or when the
+    lane count changes), are the rows encoded."""
     rng = np.random.default_rng(1)
     trainer._txt_cache_tokens = None
     start = (trainer.instruction_encodes, trainer.instruction_rows_encoded,
@@ -120,8 +122,8 @@ def test_instruction_row_counts_on_scripted_tokens(trainer):
     c[2, 11] = c[2, 11] % 29 + 1  # two lanes' new episodes
     d = np.concatenate([c, c[:1]])  # a fourth lane
     # (tokens, rows encoded, rows changed) per step
-    script = [(a, 3, 3), (a.copy(), 0, 0), (b, 3, 1), (b, 0, 0),
-              (c, 3, 2), (d, 4, 4), (d, 0, 0)]
+    script = [(a, 3, 3), (a.copy(), 0, 0), (b, 1, 1), (b, 0, 0),
+              (c, 2, 2), (d, 4, 4), (d, 0, 0)]
     acts = [torch.profiler.ProfilerActivity.CPU]
     with torch.inference_mode():
         for i, (tokens, encoded, changed) in enumerate(script):
@@ -139,11 +141,10 @@ def test_instruction_row_counts_on_scripted_tokens(trainer):
         prof.stop()
     assert (trainer.instruction_encodes - start[0],
             trainer.instruction_rows_encoded - start[1],
-            trainer.instruction_rows_changed - start[2]) == (4, 13, 10)
-    # under the capture (steps 2 to 6): 3 + 3 + 4 rows encoded, 1 + 2 + 4
-    # changed
+            trainer.instruction_rows_changed - start[2]) == (4, 10, 10)
+    # under the capture (steps 2 to 6): 1 + 2 + 4 rows changed and encoded
     assert profiling.traced()["counts"] == {
-        "instruction_rows_encoded": 10, "instruction_rows_changed": 7}
+        "instruction_rows_encoded": 7, "instruction_rows_changed": 7}
     # the weights changed (an IL update): the next step re-encodes all
     trainer._txt_cache_tokens = None
     trainer._cache_instruction_features({"instruction": d})
