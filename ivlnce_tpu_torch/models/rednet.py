@@ -23,6 +23,7 @@ from torch import nn
 
 from ivlnce_tpu_torch.models.nn import apply_cast
 from ivlnce_tpu_torch.models.resnet import BNBottleneck
+from ivlnce_tpu_torch.utils import profiling
 
 RGB_MEAN = (0.485, 0.456, 0.406)
 RGB_STD = (0.229, 0.224, 0.225)
@@ -219,8 +220,15 @@ def predict_semantics(model: RedNet, rgb_uint8: torch.Tensor,
     """RedNet labels at the depth resolution (reference mapper.py:782-800):
     the argmax of the scores of ``normalize_inputs``, (B, H, W) uint8.
     ``dtype`` (``TPU.compute_dtype``) runs the inputs and the model, on a
-    cast copy of its weights, in that dtype (JAX rednet.py:236-260)."""
-    inputs = normalize_inputs(rgb_uint8, depth_normalized, dtype)
-    scores = (model(*inputs) if dtype is None
-              else apply_cast(model, dtype, *inputs))
-    return torch.argmax(scores, dim=-1).to(torch.uint8)
+    cast copy of its weights, in that dtype (JAX rednet.py:236-260).
+    Spans ``rednet_inputs``, ``rednet`` and ``rednet_labels`` cover the
+    three phases; the counter ``rednet_frames`` adds the frames labelled."""
+    with profiling.span("rednet_inputs"):
+        inputs = normalize_inputs(rgb_uint8, depth_normalized, dtype)
+    with profiling.span("rednet"):
+        scores = (model(*inputs) if dtype is None
+                  else apply_cast(model, dtype, *inputs))
+    with profiling.span("rednet_labels"):
+        labels = torch.argmax(scores, dim=-1).to(torch.uint8)
+    profiling.count("rednet_frames", labels.shape[0])
+    return labels
