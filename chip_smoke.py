@@ -1374,10 +1374,10 @@ def _restart_recorder():
     record = {"starts": 0, "missed": 0, "cleared": set()}
     policy_step, clear_lanes = BaseVLNCETrainer._policy_step, M.clear_lanes
 
-    def clearing(state, keep_mask):
+    def clearing(state, keep_mask, *args):
         keep = np.asarray(keep_mask, bool).reshape(-1)
         record["cleared"] |= set(np.flatnonzero(~keep).tolist())
-        return clear_lanes(state, keep_mask)
+        return clear_lanes(state, keep_mask, *args)
 
     def stepped(self, batch, reset_masks, *args, **kwargs):
         record["cleared"] = set()

@@ -32,6 +32,7 @@ be the C library's float32 ``cosf``/``sinf`` (see ``ops/geometry.py``).
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Tuple
 
@@ -41,6 +42,7 @@ import torch
 from ivlnce_tpu_torch.mapping.camera import CameraParameters
 from ivlnce_tpu_torch.ops import geometry as G
 from ivlnce_tpu_torch.ops import scatter as S
+from ivlnce_tpu_torch.utils import upload as U
 
 # reference filter constants
 FRAME_DEPTH_MIN = 0.01  # normalized (mapper.py:417)
@@ -124,16 +126,34 @@ def init_state(
     )
 
 
-def clear_lanes(state: MapperState, keep_mask) -> MapperState:
+@functools.lru_cache(maxsize=16)
+def _rays(w: int, h: int, vfov: float,
+          device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pixel rays (W,) and (H,) of a frame on ``device``, depth scale
+    folded in: uploaded at a shape's first step, then read, never
+    written, by every step."""
+    rays_x, rays_y = G.pixel_ray_scaling(w, h, vfov, DEPTH_SCALE_METERS)
+    with torch.inference_mode(False):
+        got = U.blocking({"x": rays_x[0].numpy(),
+                          "y": rays_y[:, 0].contiguous().numpy()}, device)
+    return got["x"], got["y"]
+
+
+def clear_lanes(state: MapperState, keep_mask,
+                upload: Optional[U.Upload] = None) -> MapperState:
     """Reset lanes where keep_mask == 0, in place (the reference's
     clear_completed_episode_data, mapper.py:310-326). Only those lanes'
-    grids are written. ``dropped`` is telemetry and stays."""
+    grids are written; their indices go through ``upload`` (blocking by
+    default). ``dropped`` is telemetry and stays."""
     keep = np.asarray(keep_mask).reshape(-1).astype(bool)
     lanes = np.nonzero(~keep)[0]
     if len(lanes):
-        idx = torch.as_tensor(lanes, device=state.word.device)
-        state.word[idx] = S.EMPTY_WORD
-        state.aux[idx] = 0
+        upload = upload or U.blocking_to(state.word.device)
+        idx = upload({"lanes": lanes})["lanes"]
+        # the fill values as launch arguments (an indexed assignment would
+        # copy each from the host and wait for the stream)
+        state.word.index_fill_(0, idx, S.EMPTY_WORD)
+        state.aux.index_fill_(0, idx, 0)
         state.origin[lanes] = 0
         state.origin_set[lanes] = False
     return state
@@ -184,11 +204,14 @@ def step_inputs(
     heading,
     not_done_masks,
     scene_center=None,
+    upload: Optional[U.Upload] = None,
 ) -> StepInputs:
     """Host half of a step: clear finished lanes, set new lanes' origins
-    (both in place) and build the ops' per-lane inputs. New origins centre
-    the grid on ``scene_center`` (B, 2) world (x, z) when given, else on
-    the robot; the raster window always centres on the robot."""
+    (both in place) and build the ops' per-lane inputs, sent in one
+    ``upload`` call (blocking copies by default). New origins centre the
+    grid on ``scene_center`` (B, 2) world (x, z) when given, else on the
+    robot; the raster window always centres on the robot. The pixel rays
+    stay on the device once per (width, height, field of view)."""
     params.validate()
     if depth.dim() == 4:
         depth = depth[..., 0]
@@ -200,10 +223,11 @@ def step_inputs(
         elevation, heading = elevation[:, 0], elevation[:, 1]
     heading = _host(heading)
     device = depth.device
+    upload = upload or U.blocking_to(device)
     b, h, w = depth.shape
     g = params.grid_cells
     half = params.half_res
-    clear_lanes(state, _host(not_done_masks) != 0)
+    clear_lanes(state, _host(not_done_masks) != 0, upload)
 
     # a lane's grid is centred on its scene or its robot at the first step
     # after reset
@@ -229,9 +253,6 @@ def step_inputs(
         ],
         1,
     ).astype(_F32)
-    rays_x, rays_y = G.pixel_ray_scaling(
-        w, h, params.camera.vertical_fov_radians, DEPTH_SCALE_METERS
-    )
 
     # the raster window around the robot, clamped into the grid
     wc = params.window_cells
@@ -255,19 +276,19 @@ def step_inputs(
         1,
     ).astype(_F32)
 
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
+    got = upload({"lane_acc": lane_acc, "origin": state.origin,
+                  "start": start, "lane_ras": lane_ras})
+    rays_x, rays_y = _rays(w, h, params.camera.vertical_fov_radians, device)
     return StepInputs(
         depth=depth.float().contiguous(),
         semantics=(None if semantics is None
                    else semantics.to(torch.uint8).contiguous()),
-        lane_acc=dev(lane_acc),
-        origin=dev(state.origin),
-        rays_x=rays_x[0].contiguous().to(device),
-        rays_y=rays_y[:, 0].contiguous().to(device),
-        start=dev(start),
-        lane_ras=dev(lane_ras),
+        lane_acc=got["lane_acc"],
+        origin=got["origin"],
+        rays_x=rays_x,
+        rays_y=rays_y,
+        start=got["start"],
+        lane_ras=got["lane_ras"],
     )
 
 
@@ -282,6 +303,7 @@ def mapper_step(
     not_done_masks,  # (B,) host array: 0 clears the lane's world state
     update_world: bool = True,
     scene_center=None,  # (B, 2) host array: world (x, z)
+    upload: Optional[U.Upload] = None,  # the per-lane inputs' copy
 ) -> Tuple[MapperState, torch.Tensor, torch.Tensor]:
     """One mapping step on ``depth``'s device: returns (state,
     occupancy_map, semantic_map), maps (B, rows, cols) uint8. ``state`` is
@@ -292,7 +314,7 @@ def mapper_step(
     ``semantics`` may then be None. ``scene_center`` centres new lanes'
     grids on their scene instead of the robot (``step_inputs``)."""
     inp = step_inputs(params, state, depth, semantics, pose, elevation,
-                      heading, not_done_masks, scene_center)
+                      heading, not_done_masks, scene_center, upload)
     if update_world:
         S.accumulate(
             state.word, state.aux, state.dropped, inp.depth, inp.semantics,
@@ -324,9 +346,9 @@ def prepare_load(
     origin = _grid_origins(center[:, 0], center[:, 1], params)
     state.origin[lanes] = origin
     state.origin_set[lanes] = True
-    dev = state.word.device
-    return (torch.from_numpy(lanes.astype(np.int32)).to(dev),
-            torch.from_numpy(origin).to(dev))
+    got = U.blocking({"rows": lanes.astype(np.int32), "origin": origin},
+                     state.word.device)
+    return got["rows"], got["origin"]
 
 
 def load_lanes(

@@ -33,6 +33,7 @@ from ivlnce_tpu_torch.mapping.mapper import (
 from ivlnce_tpu_torch.models.nn import compute_dtype as nn_compute_dtype
 from ivlnce_tpu_torch.ops.geometry import MapDims
 from ivlnce_tpu_torch.utils import logging_util, profiling
+from ivlnce_tpu_torch.utils import upload as U
 from ivlnce_tpu_torch.utils.registry import registry
 
 REDNET_CHECKPOINT = "data/rednet_mp3d_best_model.pkl"
@@ -164,19 +165,14 @@ class Mapper:
                     f"({len(xyz) - n} dropped) — raise "
                     "TPU.known_map_max_points"
                 )
-            self._known_map_cache[env_name] = (
-                torch.from_numpy(np.ascontiguousarray(xyz[:n])).to(
-                    self.device),
-                torch.from_numpy(np.ascontiguousarray(sem[:n])).to(
-                    self.device),
-                n,
-            )
+            got = U.blocking({"xyz": xyz[:n], "sem": sem[:n]}, self.device)
+            self._known_map_cache[env_name] = (got["xyz"], got["sem"], n)
         return self._known_map_cache[env_name]
 
     def _stack_clouds(self, clouds):
         """(L, N, 3) xyz, (L, N) labels and (L,) counts of cached clouds,
         N the largest count; padding points lie beyond the counts."""
-        counts = torch.tensor([c[2] for c in clouds], dtype=torch.int32)
+        counts = np.array([c[2] for c in clouds], np.int32)
         n = max(int(counts.max()), 1)
         xyz = torch.zeros((len(clouds), n, 3), dtype=torch.float32,
                           device=self.device)
@@ -185,7 +181,8 @@ class Mapper:
         for i, (x, s, k) in enumerate(clouds):
             xyz[i, :k] = x
             sem[i, :k] = s
-        return xyz, sem, counts.to(self.device)
+        return xyz, sem, U.blocking({"counts": counts},
+                                    self.device)["counts"]
 
     def _maybe_load_known_maps(self, observations: Dict, masks: np.ndarray,
                                rows=None) -> None:
@@ -250,14 +247,16 @@ class Mapper:
         if self.known_maps:
             self._maybe_load_known_maps(observations, masks, rows)
 
-    def make_device_step(self):
+    def make_device_step(self, upload: Optional[U.Upload] = None):
         """A function (state, obs, reset_masks, rednet) -> (state,
         occupancy, semantic). ``obs`` holds device ``depth`` and
         ``semantic12`` or uint8 ``rgb``, host ``world_robot_pose`` /
         ``world_robot_orientation`` and, with scene centres, host
         ``scene_center``; ``reset_masks`` is a host array. Known maps feed
         all-ones masks (reloads handle resets, mapper.py:851-881) and
-        accumulate nothing."""
+        accumulate nothing. The mapper's per-lane inputs go through
+        ``upload`` (the trainer's ``utils/upload.py::StagedUpload``; by
+        default blocking copies)."""
         params = self.params
         predicted = self.predicted_semantics
         known = self.known_maps
@@ -298,6 +297,7 @@ class Mapper:
                 update_world=not known,
                 scene_center=(None if center is None
                               else np.asarray(center, np.float32)),
+                upload=upload,
             )
 
         return device_step

@@ -9,22 +9,24 @@ number of feature rows with any non-zero entry.
 ``RowEncoder`` serves the eval step's per-episode cache
 (``trainers/base_trainer.py``): it writes the features of the rows that
 changed into a persistent (B, T, 2H) tensor in place
-(``models/rnn.py::bi_lstm_rows``), from lengths counted on the host.
-``forward`` (the IL update, with autograd) keeps ``bi_lstm_padded``."""
+(``models/rnn.py::bi_lstm_rows``), from lengths counted on the host and
+sent with the changed rows' tokens through the step's upload
+(``utils/upload.py``). ``forward`` (the IL update, with autograd) keeps
+``bi_lstm_padded``."""
 
 from __future__ import annotations
 
 import gzip
 import json
 import os
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
 from ivlnce_tpu_torch.models.rnn import bi_lstm_padded, bi_lstm_rows
-from ivlnce_tpu_torch.utils import profiling
+from ivlnce_tpu_torch.utils import profiling, upload as U
 
 
 def load_embeddings(embedding_file: str) -> np.ndarray:
@@ -101,12 +103,14 @@ class RowEncoder:
                                    lstm.weight_hh_l0_reverse.t()])
 
     def __call__(self, inputs: np.ndarray, rows: np.ndarray,
-                 out: torch.Tensor) -> None:
+                 out: torch.Tensor,
+                 upload: Optional[U.Upload] = None) -> None:
         """Rows ``rows`` of ``out`` as ``forward``'s (permuted) features of
         the host ``inputs``: (k, T) tokens, or (k, T, F) RxR features. The
         lengths are counted here, as ``forward`` counts them, and the
-        inputs are cut to the longest before they are uploaded: nothing is
-        read back from the card."""
+        inputs are cut to the longest before they are uploaded in one
+        ``upload`` call (a ``utils/upload.py::StagedUpload``; by default
+        ``upload.blocking_to``): nothing is read back from the card."""
         rxr = self.table is None
         nonzero = inputs != 0
         lengths = (nonzero.any(2) if rxr else nonzero).sum(1)
@@ -119,12 +123,15 @@ class RowEncoder:
                              f"{len(self.table)}")
         else:
             index = cut
+        upload = upload or U.blocking_to(out.device)
         with profiling.span("upload"):
-            ints = torch.from_numpy(np.concatenate(
-                [index.reshape(-1), rows, lengths]).astype(np.int64)
-            ).to(out.device)
-            gates = (torch.from_numpy(cut).to(out.device) if rxr
-                     else self.table)
+            host = {"ints": np.concatenate(
+                [index.reshape(-1), rows, lengths]).astype(np.int64)}
+            if rxr:
+                host["cut"] = cut
+            got = upload(host)
+        ints = got["ints"]
+        gates = got["cut"] if rxr else self.table
         if rxr:
             gates = torch.addmm(self.bias,
                                 gates.reshape(k * tg, inputs.shape[2]).float(),

@@ -175,6 +175,26 @@ def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
     return np.where(inside[None, :], w, f32(0)).astype(f32)
 
 
+@functools.lru_cache(maxsize=32)
+def _resize_matrix(n_in: int, n_out: int, device: torch.device,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """``_resize_weights`` on ``device`` in ``dtype``, uploaded at a
+    shape's first call and only read after it."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_resize_weights(n_in, n_out)).to(device,
+                                                                 dtype)
+
+
+@functools.lru_cache(maxsize=8)
+def _rgb_stats(device: torch.device,
+               dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RGB mean and standard deviation on ``device`` in ``dtype``,
+    uploaded at the first call and only read after it."""
+    with torch.inference_mode(False):
+        return (torch.tensor(RGB_MEAN, device=device, dtype=dtype),
+                torch.tensor(RGB_STD, device=device, dtype=dtype))
+
+
 def bilinear_resize(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
     """NHWC (B, H, W, C) -> (B, hw[0], hw[1], C) with the semantics of the
     JAX package's ``bilinear_resize`` (``jax.image.resize``, "linear"):
@@ -185,8 +205,7 @@ def bilinear_resize(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
         n_in = x.shape[axis]
         if n_in == n_out:
             continue
-        w = torch.from_numpy(_resize_weights(n_in, n_out)).to(x.device,
-                                                               x.dtype)
+        w = _resize_matrix(n_in, n_out, x.device, x.dtype)
         x = torch.movedim(
             torch.tensordot(x, w, dims=([axis], [0])), -1, axis
         )
@@ -205,8 +224,7 @@ def normalize_inputs(rgb_uint8: torch.Tensor, depth_normalized: torch.Tensor,
     hw = depth_normalized.shape[1:3]
     rgb = rgb_uint8.to(dtype) / 255.0
     rgb = bilinear_resize(rgb, hw)
-    mean = torch.tensor(RGB_MEAN, device=rgb.device, dtype=dtype)
-    std = torch.tensor(RGB_STD, device=rgb.device, dtype=dtype)
+    mean, std = _rgb_stats(rgb.device, dtype)
     rgb = (rgb - mean) / std
     if depth_normalized.dim() == 3:
         depth_normalized = depth_normalized[..., None]

@@ -46,6 +46,7 @@ from ivlnce_tpu_torch.utils.batching import batch_obs, extract_instruction_token
 from ivlnce_tpu_torch.utils.device import resolve_device
 from ivlnce_tpu_torch.utils.registry import registry
 from ivlnce_tpu_torch.utils.tb import TensorboardWriter
+from ivlnce_tpu_torch.utils.upload import StagedUpload
 
 logger = logging_util.logger
 
@@ -283,6 +284,8 @@ class BaseVLNCETrainer:
         self._device_step = None
         self._generator = None
         self._pending_maps = None
+        # every host-to-device copy of a policy or collection step
+        self._upload = StagedUpload(self.device)
         # policy steps and instruction bi-LSTM runs (once per episode
         # change, not per step) over the trainer's evals, the rows those
         # runs encoded and, of them, the rows whose tokens had changed
@@ -510,11 +513,12 @@ class BaseVLNCETrainer:
         return state
 
     def _setup_obs_transforms(self, config) -> None:
-        """The enabled mapper obs transform and its device step; none for
-        a policy that reads no map (LatentCMA)."""
+        """The enabled mapper obs transform and its device step, which
+        uploads through the step's arena; none for a policy that reads no
+        map (LatentCMA)."""
         self.obs_transforms = get_active_obs_transforms(config, self.device)
         self._device_step = (
-            self.obs_transforms[0].make_device_step()
+            self.obs_transforms[0].make_device_step(self._upload)
             if self.obs_transforms else None
         )
 
@@ -547,7 +551,7 @@ class BaseVLNCETrainer:
     # -- one env step on the device -------------------------------------------
     def _wire_device_obs(self, batch, transform) -> Dict[str, Any]:
         """Full-width obs for one step: only the keys the step reads; depth
-        as uint16, uploaded with the semantic or RGB frame; pose,
+        as uint16, staged with the semantic or RGB frame in one copy; pose,
         orientation and scene centres stay on the host; instruction tokens
         become cached features."""
         wire_keys = batching.wire_obs_keys(self.policy, transform)
@@ -563,18 +567,16 @@ class BaseVLNCETrainer:
                 dobs, self.config.TPU.wire_depth_uint16
             )
         with profiling.span("upload"):
-            for k, v in dobs.items():
-                if k not in batching.HOST_OBS_KEYS:
-                    dobs[k] = torch.from_numpy(np.ascontiguousarray(v)).to(
-                        self.device
-                    )
+            dobs.update(self._upload({
+                k: v for k, v in dobs.items()
+                if k not in batching.HOST_OBS_KEYS}))
         return self._cache_instruction_features(dobs)
 
     def _cache_instruction_features(self, dobs):
         """Encode the instruction bi-LSTM once per episode: the tokens (or
         RxR's precomputed features) are compared on the host, and only the
         rows that changed (every row with no cache, a new shape or lane
-        count, or after an IL update) are uploaded with their lengths,
+        count, or after an IL update) are staged with their lengths,
         counted on the host, and re-encoded in place into one persistent
         (B, T, 2H) tensor; the step reads it as (B, 2H, T). Nothing is
         read back from the card."""
@@ -602,7 +604,7 @@ class BaseVLNCETrainer:
             if len(changed):
                 with profiling.span("instruction_encoder"):
                     self._txt_encode(tokens[changed], changed,
-                                     self._txt_store)
+                                     self._txt_store, self._upload)
                 self._txt_cache_tokens = tokens.copy()
                 self.instruction_encodes += 1
                 self.instruction_rows_encoded += len(changed)
@@ -619,8 +621,10 @@ class BaseVLNCETrainer:
         """The host half of a policy or collection step: the lane map, the
         transform's ``host_prepare``, the wire obs with the cached
         instruction features, and the masks and previous actions on the
-        device. Returns (live rows, transform, obs, full-width previous
-        actions, full-width masks)."""
+        device, every copy staged in this step's arena. Returns (live
+        rows, transform, obs, full-width previous actions, full-width
+        masks)."""
+        self._upload.begin_step()
         if self._lane_rows is None or rnn_states.shape[0] != self._num_rows:
             self._reset_lanes(rnn_states.shape[0])
         rows = self._lane_rows
@@ -634,15 +638,14 @@ class BaseVLNCETrainer:
                     num_rows=self._num_rows,
                 )
         obs = batching.decode_wire_obs(self._wire_device_obs(batch, transform))
-
-        def dev(a, dtype):
-            return torch.as_tensor(self._expand_rows(a), dtype=dtype,
-                                   device=self.device)
-
         with profiling.span("upload"):
-            masks_full = [dev(m, torch.float32) for m in masks]
-            prev_full = dev(prev_actions, torch.int64)
-        return rows, transform, obs, prev_full, masks_full
+            host = {f"mask{i}": np.asarray(self._expand_rows(m), np.float32)
+                    for i, m in enumerate(masks)}
+            host["prev"] = np.asarray(self._expand_rows(prev_actions),
+                                      np.int64)
+            got = self._upload(host)
+        prev_full = got.pop("prev")
+        return rows, transform, obs, prev_full, list(got.values())
 
     def _policy_step(self, batch, reset_masks, rnn_states, prev_actions,
                      masks, iterative: bool = True, need_maps: bool = False):

@@ -20,6 +20,7 @@ from ivlnce_tpu_torch.models.instruction_encoder import InstructionEncoder
 from ivlnce_tpu_torch.models.rnn import bi_lstm_padded, bi_lstm_rows
 from ivlnce_tpu_torch.trainers.base_trainer import BaseVLNCETrainer
 from ivlnce_tpu_torch.utils import profiling
+from ivlnce_tpu_torch.utils.upload import StagedUpload
 from tests.test_torch_train import one_torch_thread  # noqa: F401  (autouse)
 
 E, H, T, B = 8, 16, 24, 12
@@ -52,6 +53,7 @@ def _trainer(encoder: InstructionEncoder) -> BaseVLNCETrainer:
     t.policy = SimpleNamespace(
         net=SimpleNamespace(instruction_encoder=encoder))
     t.device = torch.device("cpu")
+    t._upload = StagedUpload(t.device)
     t._txt_cache_tokens = None
     t.instruction_encodes = 0
     t.instruction_rows_encoded = 0
@@ -172,8 +174,10 @@ def test_rows_encoded_counts_only_the_changed_rows():
         with torch.profiler.profile(activities=acts):
             trainer._cache_instruction_features({"instruction": b})
             trainer._cache_instruction_features({"instruction": b})
+        # rows 2 and 5: their 9 tokens, rows and lengths staged as int64
         assert profiling.traced()["counts"] == {
-            "instruction_rows_encoded": 2, "instruction_rows_changed": 2}
+            "instruction_rows_encoded": 2, "instruction_rows_changed": 2,
+            "upload_bytes_staged": 8 * (2 * 9 + 2 + 2)}
         trainer._txt_cache_tokens = None
         trainer._cache_instruction_features({"instruction": b})
     assert (trainer.instruction_encodes, trainer.instruction_rows_encoded,

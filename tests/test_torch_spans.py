@@ -101,8 +101,13 @@ def test_policy_step_spans_inside_one_policy_step(trainer):
     assert not any(cache[0] <= s and e <= cache[1] for s, e in syncs)
     assert cache[0] <= encoder[0] and encoder[1] <= cache[1]
     got = profiling.traced()
-    assert got["counts"] == {"instruction_rows_encoded": LANES,
-                             "instruction_rows_changed": LANES}
+    rows = {k: got["counts"][k] for k in ("instruction_rows_encoded",
+                                          "instruction_rows_changed")}
+    assert rows == {"instruction_rows_encoded": LANES,
+                    "instruction_rows_changed": LANES}
+    # the step's copies go through its arena (tests/test_torch_staged_upload.py
+    # counts their bytes)
+    assert got["counts"]["upload_bytes_staged"] > 0
     assert got["host_us"]["policy_step"] >= got["host_us"]["upload"] > 0
 
 
@@ -142,9 +147,12 @@ def test_instruction_row_counts_on_scripted_tokens(trainer):
     assert (trainer.instruction_encodes - start[0],
             trainer.instruction_rows_encoded - start[1],
             trainer.instruction_rows_changed - start[2]) == (4, 10, 10)
-    # under the capture (steps 2 to 6): 1 + 2 + 4 rows changed and encoded
+    # under the capture (steps 2 to 6): 1 + 2 + 4 rows changed and encoded,
+    # each encode staging its rows' 12 tokens, rows and lengths as int64
     assert profiling.traced()["counts"] == {
-        "instruction_rows_encoded": 7, "instruction_rows_changed": 7}
+        "instruction_rows_encoded": 7, "instruction_rows_changed": 7,
+        "upload_bytes_staged": 8 * ((12 + 2) * 1 + (12 + 2) * 2
+                                    + (12 + 2) * 4)}
     # the weights changed (an IL update): the next step re-encodes all
     trainer._txt_cache_tokens = None
     trainer._cache_instruction_features({"instruction": d})
