@@ -2139,7 +2139,7 @@ def _training_policy(config, dtype, device):
     """The MapCMA policy at the config's widths, weights from ``SEED``,
     modules as the trainer sets them (recurrent ones in train mode)."""
     from ivlnce_tpu_torch.models.policy import MapCMAPolicy
-    from ivlnce_tpu_torch.trainers.base_trainer import train_mode
+    from ivlnce_tpu_torch.models.il_update import train_mode
 
     mapper = config.RL.POLICY.OBS_TRANSFORMS.EGOCENTRIC_MAPPER
     info = {"depth_hw": config.TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.HEIGHT,
@@ -2154,7 +2154,7 @@ def _training_policy(config, dtype, device):
 def _train_grads(policy, batch, dtype, device):
     """The loss terms and every parameter's gradient (zeros where none)
     of one training forward and backward of ``batch``."""
-    from ivlnce_tpu_torch.trainers.base_trainer import train_loss
+    from ivlnce_tpu_torch.models.il_update import train_loss
 
     obs, prev, masks, corrected, weights = batch
     t, n = corrected.shape
@@ -2198,7 +2198,7 @@ def phase_train_reference(card: str, store_dir: str) -> dict:
     import random
 
     from ivlnce_tpu_torch.config import get_config
-    from ivlnce_tpu_torch.trainers.base_trainer import make_optimizer
+    from ivlnce_tpu_torch.models.il_update import make_optimizer
     from ivlnce_tpu_torch.trainers.dagger_trainer import IWTrajectoryDataset
 
     config = get_config(TRAIN_CONFIGS["train_map_cma"])
@@ -2479,7 +2479,7 @@ def _tour_grads(policy, batch, rnn_states, device):
     """The loss terms, every parameter's gradient (zeros where none) and
     the final RNN state of one training forward and backward of a tour
     batch from ``rnn_states``."""
-    from ivlnce_tpu_torch.trainers.base_trainer import train_loss
+    from ivlnce_tpu_torch.models.il_update import train_loss
 
     obs, prev, ep_masks, tour_masks, corrected, weights = batch
     t, n = corrected.shape
@@ -3094,10 +3094,7 @@ def _mesh_update(policy, config, batch, dtype, mesh=None):
     Returns the loss terms, the final RNN states, the updated policy (the
     split copy, or ``policy`` itself), the step and the optimizer."""
     from ivlnce_tpu_torch import parallel
-    from ivlnce_tpu_torch.trainers.base_trainer import (
-        make_optimizer,
-        train_step,
-    )
+    from ivlnce_tpu_torch.models.il_update import make_optimizer, train_step
 
     obs, prev, masks, corrected, weights = batch
     t, n = corrected.shape
@@ -3108,10 +3105,8 @@ def _mesh_update(policy, config, batch, dtype, mesh=None):
     args = [obs, prev.astype(np.int64), masks, masks,
             corrected.astype(np.int64), weights.astype(fdt)]
     lead = next(policy.parameters()).device
-    if mesh is None:
+    if mesh is None:  # host arrays: both steps copy them
         step = train_step
-        args = [{k: torch.from_numpy(v).to(lead) for k, v in obs.items()},
-                *(torch.from_numpy(a).to(lead) for a in args[1:])]
     else:
         step = parallel.sharded_train_step(mesh)
         if mesh.shape["model"] > 1:
@@ -3294,10 +3289,8 @@ def dp_timing(card: str, tmp: str, batch, devices) -> dict:
     train step (host clock over updates that end in the losses' copy to
     the host) and the peak memory of each round on each device."""
     from ivlnce_tpu_torch.config import get_config
-    from ivlnce_tpu_torch.trainers.base_trainer import (
-        BaseVLNCETrainer,
-        make_optimizer,
-    )
+    from ivlnce_tpu_torch.models.il_update import make_optimizer
+    from ivlnce_tpu_torch.trainers.base_trainer import BaseVLNCETrainer
 
     k = len(devices)
     trainers = {}
@@ -3526,10 +3519,8 @@ def mp_timing(card: str, tmp: str, batch, devices, layouts) -> dict:
     memory of each on each card."""
     from ivlnce_tpu_torch import parallel
     from ivlnce_tpu_torch.config import get_config
-    from ivlnce_tpu_torch.trainers.base_trainer import (
-        BaseVLNCETrainer,
-        make_optimizer,
-    )
+    from ivlnce_tpu_torch.models.il_update import make_optimizer
+    from ivlnce_tpu_torch.trainers.base_trainer import BaseVLNCETrainer
 
     trainers = {}
     for data, model in [(1, 1)] + list(layouts):

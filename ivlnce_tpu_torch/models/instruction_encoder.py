@@ -6,20 +6,19 @@ features (B, 2H, T) with padded positions zeroed. With ``sensor_uuid``
 precomputed (T, embedding_size) features, and a row's length is the
 number of feature rows with any non-zero entry.
 
-``RowEncoder`` serves the eval step's per-episode cache
-(``trainers/base_trainer.py``): it writes the features of the rows that
-changed into a persistent (B, T, 2H) tensor in place
-(``models/rnn.py::bi_lstm_rows``), from lengths counted on the host and
-sent with the changed rows' tokens through the step's upload
-(``utils/upload.py``). ``forward`` (the IL update, with autograd) keeps
-``bi_lstm_padded``."""
+``InstructionCache`` is the eval step's per-episode cache: its
+``RowEncoder`` writes the features of the rows that changed into a
+persistent (B, T, 2H) tensor in place (``models/rnn.py::bi_lstm_rows``),
+from lengths counted on the host and sent with the changed rows' tokens
+through the step's upload (``utils/upload.py``). ``forward`` (the IL
+update, with autograd) keeps ``bi_lstm_padded``."""
 
 from __future__ import annotations
 
 import gzip
 import json
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,7 +63,7 @@ class InstructionEncoder(nn.Module):
 
     def forward(self, observations: Dict[str, torch.Tensor]) -> torch.Tensor:
         if "instruction_features" in observations:
-            # per-episode cache (trainers/base_trainer.py)
+            # the per-episode cache (InstructionCache)
             return observations["instruction_features"]
         if self.embedding_layer is None:
             embedded = observations["rxr_instruction"].float()
@@ -86,7 +85,7 @@ class RowEncoder:
     are when it is made: every token's input pre-activations of both
     directions in one (vocab, 8H) table (RxR's features keep W_ih and the
     biases for one matrix product per call) and each direction's W_hh laid
-    out [H][4H]. Make a new one whenever the weights change."""
+    out [H][4H]."""
 
     def __init__(self, encoder: InstructionEncoder):
         lstm = encoder.encoder_rnn
@@ -139,3 +138,45 @@ class RowEncoder:
         n = k * tg
         bi_lstm_rows(gates, ints[:n].view(k, tg), self.w_hh_t,
                      lengths=ints[n + k:], rows=ints[n:n + k], out=out)
+
+
+class InstructionCache:
+    """The eval step's instruction features, encoded once per episode: only
+    the rows whose host tokens (or RxR features) changed are re-encoded, in
+    place, into a persistent (B, T, 2H) tensor read as (B, 2H, T). Every
+    row is, with a new ``RowEncoder``, on the first call, a new shape or
+    lane count, and after ``clear`` (call it when the weights change)."""
+
+    def __init__(self, encoder: InstructionEncoder):
+        self.encoder = encoder
+        self.tokens: Optional[np.ndarray] = None  # the host rows encoded
+        self._store = self._encode = None  # (B, T, 2H), its RowEncoder
+
+    def clear(self) -> None:
+        self.tokens = None
+
+    def __call__(self, inputs, upload: U.Upload
+                 ) -> Tuple[torch.Tensor, int]:
+        """The features of host (B, T) tokens or (B, T, F) features, and
+        the rows encoded, sent through ``upload``; no read from the card."""
+        with profiling.span("instruction_cache"):
+            tokens = np.asarray(inputs)
+            rows = len(tokens)
+            if self.tokens is None or self.tokens.shape != tokens.shape:
+                changed = np.arange(rows)
+                self._store = torch.empty(
+                    (rows, tokens.shape[1], output_size(self.encoder.config)),
+                    dtype=torch.float32,
+                    device=next(self.encoder.parameters()).device)
+                self._encode = RowEncoder(self.encoder)
+            else:
+                changed = np.flatnonzero(
+                    (self.tokens != tokens).reshape(rows, -1).any(1))
+            if len(changed):
+                with profiling.span("instruction_encoder"):
+                    self._encode(tokens[changed], changed, self._store,
+                                 upload)
+                self.tokens = tokens.copy()
+                profiling.count("instruction_rows_encoded", len(changed))
+                profiling.count("instruction_rows_changed", len(changed))
+        return self._store.permute(0, 2, 1), len(changed)

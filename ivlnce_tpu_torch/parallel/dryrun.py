@@ -24,6 +24,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from ivlnce_tpu_torch.models.il_update import train_mode, train_step
 from ivlnce_tpu_torch.parallel.mesh import (
     Mesh,
     lane_shards,
@@ -129,8 +130,6 @@ def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None
     terms and the one-device loss, the shapes, the fused act's actions and
     logits and its inputs, the mesh, each data row's copy of the stepped
     policy (``copies``) and the step."""
-    from ivlnce_tpu_torch.trainers.base_trainer import train_mode, train_step
-
     devices = list(local_devices("cuda") if devices is None else devices)
     if len(devices) < n_devices:
         raise ValueError(f"need {n_devices} devices, have {len(devices)}")
@@ -160,13 +159,8 @@ def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None
     # loss parity: the same step on one device, from the same weights
     # (catches silently wrong shardings)
     one = train_mode(copy.deepcopy(base).to(lead))
-
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(lead)
-
     loss1 = train_step(
-        one, torch.optim.Adam(one.parameters(), lr=LR),
-        {k: dev(v) for k, v in obs.items()}, *map(dev, batch[1:]),
+        one, torch.optim.Adam(one.parameters(), lr=LR), *batch,
         one.initial_rnn_states(n, lead), True, 1.0, False)[0]
     loss, loss1 = float(loss), float(loss1)
     if abs(loss - loss1) > LOSS_RTOL * max(1.0, abs(loss1)):

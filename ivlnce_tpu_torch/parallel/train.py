@@ -51,7 +51,8 @@ RNN states, after one optimizer step on the whole batch's gradient.
   recurrent modules keep the train mode the trainer set.
 - Rows on row 0's devices (every row on a one-card machine or the CPU)
   run in turn with row 0's weights: no copy, no collective.
-- A shard's host arrays are uploaded straight to its row's lead.
+- A shard's host arrays are uploaded straight to its row's lead
+  (``models/il_update.py::to_device``).
 
 The step returns, like ``train_step``, the detached loss terms and the
 final RNN states, gathered by lane on the mesh's lead."""
@@ -61,22 +62,15 @@ from __future__ import annotations
 import itertools
 from typing import Dict, Optional, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
+from ivlnce_tpu_torch.models.il_update import to_device, train_loss
 from ivlnce_tpu_torch.parallel.mesh import Mesh, lane_shards
 from ivlnce_tpu_torch.parallel.tensor import shard_policy, split_columns
-from ivlnce_tpu_torch.trainers import base_trainer
 from ivlnce_tpu_torch.utils import profiling
 
 MAP_KEYS = ("occupancy_map", "semantic_map")
-
-
-def _upload(a, device: torch.device) -> torch.Tensor:
-    if isinstance(a, torch.Tensor):
-        return a.to(device)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
 def _lane_rows(a, lanes: slice, t: int, n: int, device: torch.device,
@@ -85,7 +79,7 @@ def _lane_rows(a, lanes: slice, t: int, n: int, device: torch.device,
     ``flat``, on ``device``; a host array's go to it in one upload."""
     rest = tuple(a.shape[1:]) if flat else ()
     part = a.reshape((t, n) + rest)[:, lanes]
-    return _upload(part.reshape((-1,) + rest) if flat else part, device)
+    return to_device(part.reshape((-1,) + rest) if flat else part, device)
 
 
 Row = Tuple[torch.device, ...]
@@ -192,7 +186,7 @@ class ShardedTrainStep:
         maps = map_features = None
         if hasattr(policy.net, "map_encoder"):
             with profiling.span("upload"):
-                maps = [_upload(observations[k], lead) for k in MAP_KEYS]
+                maps = [to_device(observations[k], lead) for k in MAP_KEYS]
             with profiling.span("train_encode"):
                 map_features = policy.encode_maps(*maps, training=True)
         parts = []
@@ -211,7 +205,7 @@ class ShardedTrainStep:
                 args = (rows(prev_actions), rows(episode_masks, False),
                         rows(tour_masks, False), rows(corrected, False),
                         rows(weights, False), rnn_states[lanes].to(device))
-            parts.append(base_trainer.train_loss(
+            parts.append(train_loss(
                 module, obs, *args, use_progress, alpha, n_lanes=n,
                 n_aux_rows=n_aux_rows,
             ))
@@ -234,8 +228,8 @@ class ShardedTrainStep:
 
 
 def sharded_train_step(mesh: Mesh) -> ShardedTrainStep:
-    """The mesh counterpart of ``base_trainer.train_step`` over ``mesh``
-    (JAX ``sharded_train_step``): with a ``model`` axis, call it with
-    ``shard_policy(policy, mesh)`` and an optimizer over that copy's
+    """The mesh counterpart of ``models/il_update.py::train_step`` over
+    ``mesh`` (JAX ``sharded_train_step``): with a ``model`` axis, call it
+    with ``shard_policy(policy, mesh)`` and an optimizer over that copy's
     parameters."""
     return ShardedTrainStep(mesh)

@@ -8,10 +8,9 @@ policy on the device (``_policy_step``) and brings back the actions;
 lanes keep a fixed row count while envs pause. Stats JSONs and tour-nDTW
 are written as the JAX package writes them.
 
-Training (base_il_trainer.py:173-219): ``train_step`` is the BPTT update
-over a (T, N) batch (inflection-weighted cross-entropy plus the progress
-monitor, backward, Adam, then the map encoder's BatchNorm statistics);
-``_update_agent`` feeds it a collated batch, over the devices
+Training (base_il_trainer.py:173-219): ``_update_agent`` feeds a
+collated batch to the BPTT update (``models/il_update.py::train_step``),
+or to its data-parallel form over the devices
 ``TPU.data_parallel_devices`` resolves to (``parallel/``). The registered
 trainers (``dagger_trainer.py`` and its two iterative subclasses) collect
 the trajectories and run the loops; ``save_training_checkpoint`` writes
@@ -36,8 +35,8 @@ from ivlnce_tpu_torch import parallel
 from ivlnce_tpu_torch.envs.vector_env import construct_envs_auto_reset_false
 from ivlnce_tpu_torch.mapping.obs_transforms import get_active_obs_transforms
 from ivlnce_tpu_torch.models import checkpoint_io as cio
+from ivlnce_tpu_torch.models import il_update
 from ivlnce_tpu_torch.models import instruction_encoder as IE
-from ivlnce_tpu_torch.models.cma import progress_monitor_loss
 from ivlnce_tpu_torch.models.convert import params_from_jax
 from ivlnce_tpu_torch.models.orbax_io import load_orbax_checkpoint
 from ivlnce_tpu_torch.tasks.tour_ndtw import compute_tour_ndtw
@@ -161,99 +160,6 @@ def checkpoints_in(folder: str) -> List[Tuple[int, str]]:
     )
 
 
-# -- the training step --------------------------------------------------------
-def train_mode(policy):
-    """The modes a policy trains in: eval, but for the recurrent modules,
-    which cuDNN's backward needs in train mode; BatchNorm is switched by
-    the forward's ``training`` argument. Returns ``policy``."""
-    policy.eval()
-    for module in policy.modules():
-        if isinstance(module, torch.nn.RNNBase):
-            module.train()
-    return policy
-
-
-def make_optimizer(policy, config) -> torch.optim.Adam:
-    """Adam at ``IL.lr`` (optax's defaults: betas 0.9 / 0.999, eps 1e-8);
-    with ``SEMANTIC_MAP_ENCODER.custom_lr`` the map encoder's parameters
-    form a second group at ``SEMANTIC_MAP_ENCODER.lr`` (JAX
-    base_trainer.py:193-211)."""
-    params = list(policy.parameters())
-    map_encoder = getattr(policy.net, "map_encoder", None)
-    if not config.MODEL.SEMANTIC_MAP_ENCODER.custom_lr or map_encoder is None:
-        return torch.optim.Adam(params, lr=config.IL.lr)
-    in_map = {id(p) for p in map_encoder.parameters()}
-    return torch.optim.Adam([
-        {"params": [p for p in params if id(p) not in in_map],
-         "lr": config.IL.lr},
-        {"params": list(map_encoder.parameters()),
-         "lr": config.MODEL.SEMANTIC_MAP_ENCODER.lr},
-    ])
-
-
-def train_loss(policy, observations, prev_actions, episode_masks,
-               tour_masks, corrected, weights, rnn_states,
-               use_progress: bool, alpha: float,
-               n_lanes: Optional[int] = None,
-               n_aux_rows: Optional[int] = None):
-    """The training forward and its loss (JAX base_trainer.py:69-93):
-    ``mean_n(sum_t w * CE / sum_t w)`` over the (T, N) ``corrected``
-    actions and inflection ``weights``, plus ``alpha`` times the progress
-    monitor's squared error over the rows with w > 0. Returns (loss,
-    action loss, aux loss, final rnn_states).
-
-    A shard of a larger batch (``parallel/train.py``) passes the whole
-    batch's lane count ``n_lanes`` and its count of rows with w > 0
-    ``n_aux_rows``: its terms are then its share of the whole batch's, and
-    the shards' terms add up to them."""
-    t, n = corrected.shape
-    logits, features, rnn_out = policy.build_distribution(
-        observations, rnn_states, prev_actions, episode_masks, tour_masks,
-        training=True,
-    )
-    with profiling.span("train_loss"):
-        logp = torch.log_softmax(logits.reshape(t, n, -1), dim=-1)
-        action_loss = -logp.gather(-1, corrected[..., None])[..., 0]
-        action_loss = (weights * action_loss).sum(0) / weights.sum(0)
-        action_loss = (action_loss.mean() if n_lanes is None
-                       else action_loss.sum() / n_lanes)
-        aux_loss = torch.zeros((), device=logits.device)
-        if use_progress:
-            p_loss = progress_monitor_loss(policy.net, features,
-                                           observations["progress"])
-            aux_mask = (weights > 0).reshape(-1).float()
-            aux_loss = alpha * (p_loss * aux_mask).sum() / (
-                aux_mask.sum() if n_aux_rows is None else n_aux_rows)
-    return action_loss + aux_loss, action_loss, aux_loss, rnn_out
-
-
-def train_step(policy, optimizer, observations, prev_actions, episode_masks,
-               tour_masks, corrected, weights, rnn_states,
-               use_progress: bool, alpha: float, update_map_bn: bool):
-    """One BPTT update (JAX ``make_train_step``): the loss, its gradients,
-    an optimizer step, then, with ``update_map_bn`` (MapCMA with a
-    trainable map encoder), the map encoder's running BatchNorm statistics
-    recomputed over the batch's maps with the UPDATED weights, as the JAX
-    package does after its optimizer update. Returns the loss terms and
-    the final rnn_states, detached."""
-    loss, action_loss, aux_loss, rnn_out = train_loss(
-        policy, observations, prev_actions, episode_masks, tour_masks,
-        corrected, weights, rnn_states, use_progress, alpha,
-    )
-    with profiling.span("backward"):
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-    with profiling.span("optimizer"):
-        optimizer.step()
-    if update_map_bn:
-        with profiling.span("map_bn_stats"):
-            policy.net.map_encoder.update_running_stats(
-                observations["occupancy_map"], observations["semantic_map"]
-            )
-    return (loss.detach(), action_loss.detach(), aux_loss.detach(),
-            rnn_out.detach())
-
-
 class BaseVLNCETrainer:
     """Evaluation of a MapCMA or LatentCMA checkpoint on the device given
     by ``device`` ("cuda" unless the caller asks for "cpu"). ``devices``
@@ -280,19 +186,17 @@ class BaseVLNCETrainer:
         self.obs_transforms = []
         self.flush_secs = 30
         self._lane_rows = None
-        self._txt_cache_tokens = None
+        self.instruction_cache: Optional[IE.InstructionCache] = None
         self._device_step = None
         self._generator = None
         self._pending_maps = None
         # every host-to-device copy of a policy or collection step
         self._upload = StagedUpload(self.device)
         # policy steps and instruction bi-LSTM runs (once per episode
-        # change, not per step) over the trainer's evals, the rows those
-        # runs encoded and, of them, the rows whose tokens had changed
+        # change, not per step) over the trainer's evals, and their rows
         self.policy_steps = 0
         self.instruction_encodes = 0
         self.instruction_rows_encoded = 0
-        self.instruction_rows_changed = 0
         # training: the optimizer, and the train steps and their T*N rows
         self.optimizer = None
         self.checkpoint_writer = AsyncCheckpointWriter()
@@ -316,7 +220,8 @@ class BaseVLNCETrainer:
     def _build_policy(self, config, checkpoint_path: Optional[str]):
         """The configured policy on the device: seeded weights, the
         external encoders, then the checkpoint's weights when a path is
-        given. Returns (policy, the checkpoint dict or None)."""
+        given; a new lane map and instruction cache go with it. Returns
+        (policy, the checkpoint dict or None)."""
         policy_cls = registry.get_policy(config.MODEL.policy_name)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(config.TASK_CONFIG.SEED)
@@ -332,12 +237,14 @@ class BaseVLNCETrainer:
         policy.load_state_dict(state)
         n_params = sum(p.numel() for p in policy.parameters())
         logger.info(f"Agent parameters: {n_params}.")
-        return policy.to(self.device), ckpt
+        policy.to(self.device)
+        self._lane_rows = None
+        self.instruction_cache = IE.InstructionCache(
+            policy.net.instruction_encoder)
+        return policy, ckpt
 
     def _initialize_policy(self, config, checkpoint_path: str) -> None:
         self.policy = self._build_policy(config, checkpoint_path)[0].eval()
-        self._lane_rows = None
-        self._txt_cache_tokens = None
         # EVAL.SAMPLE: actions drawn with a generator on the policy's
         # device seeded from TASK_CONFIG.SEED (base_il_trainer.py:452,699)
         self._generator = None
@@ -389,7 +296,7 @@ class BaseVLNCETrainer:
                     f"{len(self.data_devices)} device(s) and {n_lanes} "
                     "lanes"
                 )
-                self._train_steps[ndp] = train_step
+                self._train_steps[ndp] = il_update.train_step
         return self._train_steps[ndp]
 
     def _initialize_training(self, config) -> None:
@@ -399,15 +306,13 @@ class BaseVLNCETrainer:
         trainer's optax Adam state from its pickle or Orbax directory:
         ``cio.adam_state_from_optax``), epoch and step (JAX
         base_trainer.py:169-224; its own resume from an Orbax directory
-        fails, ROADMAP §3). The modules stay in eval mode but for
-        the recurrent ones, which cuDNN's backward needs in train mode:
-        BatchNorm is switched by the forward's ``training`` argument."""
+        fails, ROADMAP §3), in ``train_mode``."""
         load = config.IL.load_from_ckpt
         policy, ckpt = self._build_policy(
             config, config.IL.ckpt_to_load if load else None
         )
-        self.policy = train_mode(policy)
-        self.optimizer = make_optimizer(policy, config)
+        self.policy = il_update.train_mode(policy)
+        self.optimizer = il_update.make_optimizer(policy, config)
         self.start_epoch, self.step_id = 0, 0
         if ckpt is not None and config.IL.is_requeue and "optim_state" in ckpt:
             optim_state = ckpt["optim_state"]
@@ -417,8 +322,6 @@ class BaseVLNCETrainer:
                 cio.adam_state_from_optax(optim_state, self.optimizer, policy)
             self.start_epoch = ckpt["epoch"] + 1
             self.step_id = ckpt["step_id"]
-        self._lane_rows = None
-        self._txt_cache_tokens = None
 
     def save_training_checkpoint(self, file_name: str, dagger_it: int = 0,
                                  epoch: int = 0, step_id: int = 0) -> None:
@@ -460,36 +363,24 @@ class BaseVLNCETrainer:
         if tour_not_done_masks is None:
             tour_not_done_masks = not_done_masks
         step = self._train_step_fn(n)
-        batch = [
-            observations, np.asarray(prev_actions, np.int64),
-            np.asarray(not_done_masks, np.float32).reshape(t, n),
-            np.asarray(tour_not_done_masks, np.float32).reshape(t, n),
-            np.asarray(corrected_actions, np.int64),
-            np.asarray(weights, np.float32),
-        ]
-
-        def dev(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
         model = self.config.MODEL
-        update_map_bn = (model.policy_name == "MapCMAPolicy"
-                         and model.SEMANTIC_MAP_ENCODER.trainable)
         with profiling.span("train_step"):
-            if step is train_step:  # the data-parallel step uploads shards
-                with profiling.span("upload"):
-                    batch = [{k: dev(v) for k, v in observations.items()},
-                             *map(dev, batch[1:])]
             loss, action_loss, aux_loss, rnn_out = step(
-                self.policy, self.optimizer, *batch, rnn_states,
+                self.policy, self.optimizer, observations,
+                np.asarray(prev_actions, np.int64),
+                np.asarray(not_done_masks, np.float32).reshape(t, n),
+                np.asarray(tour_not_done_masks, np.float32).reshape(t, n),
+                np.asarray(corrected_actions, np.int64),
+                np.asarray(weights, np.float32), rnn_states,
                 model.PROGRESS_MONITOR.use, model.PROGRESS_MONITOR.alpha,
-                update_map_bn,
+                il_update.refreshes_map_bn(self.policy),
             )
             with profiling.span("device_sync"):
                 losses = [float(x) for x in
                           torch.stack([loss, action_loss, aux_loss]).cpu()]
-        # the weights changed: cached per-episode instruction features are
-        # stale
-        self._txt_cache_tokens = None
+        # the weights changed: the cached instruction features are stale
+        if self.instruction_cache is not None:
+            self.instruction_cache.clear()
         self.train_steps += 1
         self.train_rows += t * n
         return (*losses, rnn_out)
@@ -570,50 +461,13 @@ class BaseVLNCETrainer:
             dobs.update(self._upload({
                 k: v for k, v in dobs.items()
                 if k not in batching.HOST_OBS_KEYS}))
-        return self._cache_instruction_features(dobs)
-
-    def _cache_instruction_features(self, dobs):
-        """Encode the instruction bi-LSTM once per episode: the tokens (or
-        RxR's precomputed features) are compared on the host, and only the
-        rows that changed (every row with no cache, a new shape or lane
-        count, or after an IL update) are staged with their lengths,
-        counted on the host, and re-encoded in place into one persistent
-        (B, T, 2H) tensor; the step reads it as (B, 2H, T). Nothing is
-        read back from the card."""
         key = next((k for k in ("instruction", "rxr_instruction")
                     if k in dobs), None)
-        if key is None:
-            return dobs
-        with profiling.span("instruction_cache"):
-            tokens = np.asarray(dobs[key])
-            cached = self._txt_cache_tokens
-            rows = len(tokens)
-            encoder = self.policy.net.instruction_encoder
-            if cached is None or cached.shape != tokens.shape:
-                changed = np.arange(rows)
-                self._txt_store = torch.empty(
-                    (rows, tokens.shape[1],
-                     2 * encoder.encoder_rnn.hidden_size),
-                    dtype=torch.float32, device=self.device)
-                self._txt_cache = self._txt_store.permute(0, 2, 1)
-                # the weights may have changed since the last full encode
-                self._txt_encode = IE.RowEncoder(encoder)
-            else:
-                changed = np.flatnonzero(
-                    (cached != tokens).reshape(rows, -1).any(1))
-            if len(changed):
-                with profiling.span("instruction_encoder"):
-                    self._txt_encode(tokens[changed], changed,
-                                     self._txt_store, self._upload)
-                self._txt_cache_tokens = tokens.copy()
-                self.instruction_encodes += 1
-                self.instruction_rows_encoded += len(changed)
-                self.instruction_rows_changed += len(changed)
-                profiling.count("instruction_rows_encoded", len(changed))
-                profiling.count("instruction_rows_changed", len(changed))
-            dobs = dict(dobs)
-            del dobs[key]
-            dobs["instruction_features"] = self._txt_cache
+        if key is not None:
+            dobs["instruction_features"], encoded = self.instruction_cache(
+                dobs.pop(key), self._upload)
+            self.instruction_encodes += int(encoded > 0)
+            self.instruction_rows_encoded += encoded
         return dobs
 
     def _step_inputs(self, batch, reset_masks, rnn_states, prev_actions,
@@ -647,6 +501,16 @@ class BaseVLNCETrainer:
         prev_full = got.pop("prev")
         return rows, transform, obs, prev_full, list(got.values())
 
+    def _mapper_step(self, transform, obs, reset_masks) -> Dict[str, Any]:
+        """The transform's device step (``self._device_step`` at each call)
+        on ``obs``, its new state kept: ``obs`` with the step's maps."""
+        reset_full = self._expand_rows(
+            np.asarray(reset_masks, np.float32).reshape(-1))
+        with profiling.span("mapper"):
+            transform.state, occ, sem = self._device_step(
+                transform.state, obs, reset_full, transform.rednet)
+        return dict(obs, occupancy_map=occ, semantic_map=sem)
+
     def _policy_step(self, batch, reset_masks, rnn_states, prev_actions,
                      masks, iterative: bool = True, need_maps: bool = False):
         """Mapper step, when a transform is enabled, then ``act_iterative``
@@ -667,18 +531,10 @@ class BaseVLNCETrainer:
                 batch, reset_masks, rnn_states, prev_actions, masks)
             self._pending_maps = None
             if transform is not None:
-                reset_full = self._expand_rows(
-                    np.asarray(reset_masks, np.float32).reshape(-1, 1)
-                )
-                with profiling.span("mapper"):
-                    state, occ, sem = self._device_step(
-                        transform.state, obs, reset_full.reshape(-1),
-                        transform.rednet,
-                    )
-                transform.state = state
-                obs = dict(obs, occupancy_map=occ, semantic_map=sem)
+                obs = self._mapper_step(transform, obs, reset_masks)
                 if need_maps:
-                    self._pending_maps = (occ, sem, rows)
+                    self._pending_maps = (obs["occupancy_map"],
+                                          obs["semantic_map"], rows)
             act = self.policy.act_iterative if iterative else self.policy.act
             out = act(obs, rnn_states, prev_full, *masks_full,
                       generator=self._generator)

@@ -9,7 +9,7 @@ features and the maps back in one copy; the step records keep the
 FEATURES instead of the frames, and the built maps, and are written per
 episode as msgpack records into the trajectory store. Training replays
 length-sorted, block-shuffled trajectories as (T, N) padded batches
-through the BPTT train step (``base_trainer.train_step``).
+through the BPTT train step (``models/il_update.py::train_step``).
 
 Sampled actions come from a ``torch.Generator`` seeded with
 ``TASK_CONFIG.SEED + data_it``; the beta mix draws from numpy's
@@ -526,25 +526,15 @@ class DaggerTrainer(BaseVLNCETrainer):
             self.collection_env_steps += len(rows)
             with profiling.span("encoders"):
                 feats = self._encode_feats(obs)
-            pobs = dict(obs, **feats)
             if transform is not None:
-                reset_full = self._expand_rows(
-                    np.asarray(reset_masks, np.float32).reshape(-1, 1)
-                )
-                with profiling.span("mapper"):
-                    state, occ, sem = self._device_step(
-                        transform.state, obs, reset_full.reshape(-1),
-                        transform.rednet,
-                    )
-                transform.state = state
-                pobs.update(occupancy_map=occ, semantic_map=sem)
+                obs = self._mapper_step(transform, obs, reset_masks)
             act = self.policy.act_iterative if iterative else self.policy.act
-            out = act(pobs, rnn_states, prev_full, *masks_full,
+            out = act(dict(obs, **feats), rnn_states, prev_full, *masks_full,
                       generator=self._generator)
             keys = sorted(feats)
             fetch = [out.actions] + [feats[k] for k in keys]
             if transform is not None:
-                fetch += [occ, sem]
+                fetch += [obs["occupancy_map"], obs["semantic_map"]]
             with profiling.span("device_sync"):
                 got = _to_host(fetch)
         features = {k: got[1 + i][rows] for i, k in enumerate(keys)}

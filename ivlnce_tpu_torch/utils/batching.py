@@ -128,7 +128,7 @@ def wire_obs_keys(policy, transform) -> Optional[Set[str]]:
     either side doesn't declare its needs (None = upload everything, the
     reference's deliberate behavior, common/utils.py:95-135).
     Instruction keys always pass: the per-episode cache consumes and
-    strips them (base_trainer._cache_instruction_features)."""
+    strips them (models/instruction_encoder.py::InstructionCache)."""
     pk = _declared_obs_keys(policy)
     if pk is None:
         return None

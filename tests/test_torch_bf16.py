@@ -395,9 +395,9 @@ def test_train_step_under_bf16_equals_float32(tmp_path):
     float32, and after an Adam step the optimizer state and the saved
     checkpoint hold float32 tensors equal to the float32 run's."""
     from tests.test_torch_train import _opts, _torch_loss, _train_batch
+    from ivlnce_tpu_torch.models.il_update import make_optimizer
     from ivlnce_tpu_torch.trainers.base_trainer import (
         load_checkpoint,
-        make_optimizer,
         save_checkpoint,
     )
 

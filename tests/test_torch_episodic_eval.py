@@ -195,8 +195,8 @@ def test_rxr_episodic_eval_matches_jax(tmp_path, monkeypatch,
     jcfg, tcfg, jt, tt, steps, _ = _eval_pair(tmp_path, monkeypatch, RXR,
                                               None, _rxr_configure, 3)
     _assert_stats_equal(jcfg, tcfg, "stats_ckpt_0_val_seen.json")
-    assert tt._txt_cache_tokens.shape[1:] == (512, 768)
-    assert jt._txt_cache_tokens.shape == tt._txt_cache_tokens.shape
+    assert tt.instruction_cache.tokens.shape[1:] == (512, 768)
+    assert jt._txt_cache_tokens.shape == tt.instruction_cache.tokens.shape
     encoder = tt.policy.net.instruction_encoder
     assert encoder.embedding_layer is None
     assert not any("embedding_layer" in k for k in tt.policy.state_dict())

@@ -1,14 +1,14 @@
 """The eval step's per-episode instruction cache on the CPU
-(``trainers/base_trainer.py::_cache_instruction_features``,
-``models/instruction_encoder.py::RowEncoder``,
+(``models/instruction_encoder.py::InstructionCache`` and ``RowEncoder``,
 ``models/rnn.py::bi_lstm_rows``): over a sequence of token batches in
 which no row, one row, several rows and every row change, a lane pauses,
-the lane count changes and the cache is invalidated, the cached features
+the lane count changes and the cache is cleared, the cached features
 equal a full ``InstructionEncoder.forward`` within 1e-6, only the changed
 rows are encoded, and nothing is read back from the device. The plain
 ``bi_lstm_rows`` equals ``bi_lstm_padded`` on the same rows. Small widths:
-E 8, H 16, T 24, B 12. The kernel against the plain version on the card is
-in ``tests/test_torch_kernels.py``."""
+E 8, H 16, T 24, B 12. A trainer's IL update clears its cache: the next
+step encodes every row (a tiny MapCMA trainer). The kernel against the
+plain version on the card is in ``tests/test_torch_kernels.py``."""
 
 from types import SimpleNamespace
 
@@ -16,8 +16,13 @@ import numpy as np
 import pytest
 import torch
 
-from ivlnce_tpu_torch.models.instruction_encoder import InstructionEncoder
+from ivlnce_tpu_torch.config import get_config
+from ivlnce_tpu_torch.models.instruction_encoder import (
+    InstructionCache,
+    InstructionEncoder,
+)
 from ivlnce_tpu_torch.models.rnn import bi_lstm_padded, bi_lstm_rows
+from ivlnce_tpu_torch.run import register_all
 from ivlnce_tpu_torch.trainers.base_trainer import BaseVLNCETrainer
 from ivlnce_tpu_torch.utils import profiling
 from ivlnce_tpu_torch.utils.upload import StagedUpload
@@ -48,17 +53,20 @@ def _encoder(sensor: str, seed: int = 0) -> InstructionEncoder:
     return InstructionEncoder(config).eval()
 
 
-def _trainer(encoder: InstructionEncoder) -> BaseVLNCETrainer:
-    t = BaseVLNCETrainer.__new__(BaseVLNCETrainer)
-    t.policy = SimpleNamespace(
-        net=SimpleNamespace(instruction_encoder=encoder))
-    t.device = torch.device("cpu")
-    t._upload = StagedUpload(t.device)
-    t._txt_cache_tokens = None
-    t.instruction_encodes = 0
-    t.instruction_rows_encoded = 0
-    t.instruction_rows_changed = 0
-    return t
+class Cached:
+    """An ``InstructionCache`` of ``encoder`` called as a step calls it,
+    through a ``StagedUpload``, keeping count of its encodes and rows."""
+
+    def __init__(self, encoder: InstructionEncoder):
+        self.cache = InstructionCache(encoder)
+        self.upload = StagedUpload("cpu")
+        self.encodes = self.rows = 0
+
+    def __call__(self, tokens):
+        features, rows = self.cache(tokens, self.upload)
+        self.encodes += rows > 0
+        self.rows += rows
+        return features
 
 
 def _row(rng, sensor: str, length: int) -> np.ndarray:
@@ -78,8 +86,8 @@ def _batch(rng, sensor: str, lengths) -> np.ndarray:
 
 
 def _script(sensor: str):
-    """(tokens, rows encoded, whether the cache is invalidated first, as an
-    IL update does) per step."""
+    """(tokens, rows encoded, whether the cache is cleared first, as an IL
+    update clears it) per step."""
     rng = np.random.default_rng(3)
     a = _batch(rng, sensor, rng.integers(1, T + 1, B))
     a[0] = _row(rng, sensor, T)
@@ -101,23 +109,21 @@ def _script(sensor: str):
 @pytest.mark.parametrize("sensor", SENSORS)
 def test_cache_equals_full_encode_over_a_token_sequence(sensor):
     encoder = _encoder(sensor)
-    trainer = _trainer(encoder)
+    cached = Cached(encoder)
     with torch.inference_mode():
-        for i, (tokens, encoded, invalidate) in enumerate(_script(sensor)):
-            if invalidate:
-                trainer._txt_cache_tokens = None
-            before = trainer.instruction_rows_encoded
-            out = trainer._cache_instruction_features({sensor: tokens})
-            assert sensor not in out
-            got = out["instruction_features"]
+        for i, (tokens, encoded, clear) in enumerate(_script(sensor)):
+            if clear:
+                cached.cache.clear()
+            before = cached.rows
+            got = cached(tokens)
             want = encoder({sensor: torch.from_numpy(tokens)})
             assert got.shape == want.shape == (len(tokens), 2 * H, T), i
             assert torch.allclose(got, want, rtol=0, atol=TOL), (
                 i, float((got - want).abs().max()))
-            assert trainer.instruction_rows_encoded - before == encoded, i
+            assert cached.rows - before == encoded, i
             if i == 4:  # the paused lane
                 assert (got[3] == 0).all()
-    assert trainer.instruction_encodes == 7
+    assert cached.encodes == 7
 
 
 def _gates(lstm, x):
@@ -162,39 +168,38 @@ def test_plain_bi_lstm_rows_equals_bi_lstm_padded():
 
 def test_rows_encoded_counts_only_the_changed_rows():
     """Under a capture the counters read the rows encoded: the changed
-    ones, every row after an invalidation."""
-    trainer = _trainer(_encoder("instruction"))
+    ones, every row after ``clear``."""
+    cached = Cached(_encoder("instruction"))
     rng = np.random.default_rng(7)
     a = _batch(rng, "instruction", rng.integers(1, T + 1, B))
     b = a.copy()
     b[[2, 5]] = _batch(rng, "instruction", [4, 9])
     acts = [torch.profiler.ProfilerActivity.CPU]
     with torch.inference_mode():
-        trainer._cache_instruction_features({"instruction": a})
+        cached(a)
         with torch.profiler.profile(activities=acts):
-            trainer._cache_instruction_features({"instruction": b})
-            trainer._cache_instruction_features({"instruction": b})
+            cached(b)
+            cached(b)
         # rows 2 and 5: their 9 tokens, rows and lengths staged as int64
         assert profiling.traced()["counts"] == {
             "instruction_rows_encoded": 2, "instruction_rows_changed": 2,
             "upload_bytes_staged": 8 * (2 * 9 + 2 + 2)}
-        trainer._txt_cache_tokens = None
-        trainer._cache_instruction_features({"instruction": b})
-    assert (trainer.instruction_encodes, trainer.instruction_rows_encoded,
-            trainer.instruction_rows_changed) == (3, B + 2 + B, B + 2 + B)
+        cached.cache.clear()
+        cached(b)
+    assert (cached.encodes, cached.rows) == (3, B + 2 + B)
 
 
 def test_no_device_sync_inside_the_instruction_cache():
     """The lengths come from the host tokens: no blocking read."""
-    trainer = _trainer(_encoder("instruction"))
+    cached = Cached(_encoder("instruction"))
     rng = np.random.default_rng(9)
     a = _batch(rng, "instruction", rng.integers(0, T + 1, B))
     b = a.copy()
     b[1] = _row(rng, "instruction", 6)
     acts = [torch.profiler.ProfilerActivity.CPU]
     with torch.inference_mode(), torch.profiler.profile(activities=acts):
-        trainer._cache_instruction_features({"instruction": a})
-        trainer._cache_instruction_features({"instruction": b})
+        cached(a)
+        cached(b)
     host_us = profiling.traced()["host_us"]
     assert {"instruction_cache", "instruction_encoder",
             "upload"} <= set(host_us)
@@ -204,8 +209,54 @@ def test_no_device_sync_inside_the_instruction_cache():
 def test_tokens_outside_the_vocabulary_are_refused():
     """The kernel reads each token's gates by its id: an id outside the
     table is refused on the host, before any upload."""
-    trainer = _trainer(_encoder("instruction"))
+    cached = Cached(_encoder("instruction"))
     tokens = _batch(np.random.default_rng(11), "instruction", [3] * B)
     tokens[2, 1] = VOCAB
     with torch.inference_mode(), pytest.raises(ValueError, match="vocab"):
-        trainer._cache_instruction_features({"instruction": tokens})
+        cached(tokens)
+
+
+def test_an_il_update_makes_the_next_step_encode_every_row(tmp_path):
+    """A tiny MapCMA trainer's steps encode every lane once, then none for
+    the same tokens; after ``_update_agent`` the next step encodes every
+    lane again, with nothing cleared by the caller."""
+    from tests.test_torch_spans import _batch
+    from tests.test_torch_train import _train_batch
+
+    register_all()
+    opts = ["TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.HEIGHT", 64,
+            "TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.WIDTH", 64,
+            "TASK_CONFIG.SIMULATOR.RGB_SENSOR.HEIGHT", 64,
+            "TASK_CONFIG.SIMULATOR.RGB_SENSOR.WIDTH", 64,
+            "MODEL.STATE_ENCODER.hidden_size", 64,
+            "MODEL.SEMANTIC_MAP_ENCODER.channels", 8,
+            "TPU.world_grid_cells", 256, "NUM_ENVIRONMENTS", 3,
+            "CHECKPOINT_FOLDER", str(tmp_path / "ckpts"),
+            "RESULTS_DIR", str(tmp_path / "results")]
+    config = get_config("configs/fake/map_cma_eval_iterative.yaml", opts)
+    trainer = BaseVLNCETrainer(config, "cpu")
+    trainer._setup_obs_transforms(config)
+    trainer._initialize_training(config)
+    batch = _batch(np.random.default_rng(13))
+    lanes = len(batch["depth"])
+    ones = np.ones((lanes, 1), np.uint8)
+    rnn = trainer.policy.initial_rnn_states(lanes, "cpu")
+    prev = np.zeros((lanes, 1), np.int64)
+
+    def rows_encoded():
+        before = trainer.instruction_rows_encoded
+        with torch.inference_mode():
+            trainer._policy_step(batch, ones, rnn, prev, (ones,) * 4)
+        return trainer.instruction_rows_encoded - before
+
+    assert [rows_encoded(), rows_encoded()] == [lanes, 0]
+    # the step's obs carry the cached features in place of the tokens
+    with torch.inference_mode():
+        obs = trainer._wire_device_obs(batch, trainer.obs_transforms[0])
+    assert "instruction" not in obs
+    assert obs["instruction_features"].shape == (
+        lanes, 2 * config.MODEL.INSTRUCTION_ENCODER.hidden_size,
+        batch["instruction"].shape[1])
+    trainer._update_agent(*_train_batch(trainer.policy, (2, 2)))
+    assert [rows_encoded(), rows_encoded()] == [lanes, 0]
+    assert trainer.instruction_encodes == 2

@@ -66,6 +66,7 @@ def _imported_names(path):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module:
             yield node.module
+            yield from (f"{node.module}.{a.name}" for a in node.names)
 
 
 def test_no_source_names_a_forbidden_import():
@@ -77,6 +78,23 @@ def test_no_source_names_a_forbidden_import():
         for name in _imported_names(path):
             top = name.split(".")[0]
             assert top not in FORBIDDEN, f"{path} imports {name}"
+
+
+@pytest.mark.parametrize("layer",
+                         ["models", "mapping", "ops", "utils", "parallel"])
+def test_no_layer_below_the_trainers_imports_them(layer):
+    """The trainers drive the layers below them and are imported by none:
+    no module of ``layer`` names ``ivlnce_tpu_torch.trainers``, at its top
+    or inside a function (``parallel/`` takes the IL update from
+    ``models/il_update.py``)."""
+    bad = []
+    for root, _, names in os.walk(os.path.join(PORT, layer)):
+        for path in (os.path.join(root, n) for n in names
+                     if n.endswith(".py")):
+            bad += [f"{os.path.relpath(path, REPO)} imports {name}"
+                    for name in _imported_names(path)
+                    if name.startswith("ivlnce_tpu_torch.trainers")]
+    assert not bad, bad
 
 
 @pytest.mark.parametrize("device", [None, "cuda", "cuda:0"])
@@ -299,7 +317,7 @@ def test_training_waits_for_its_slice(name, tmp_path, monkeypatch, caplog):
     does, logs that, and goes on into collection (stubbed here)."""
     import logging
 
-    from ivlnce_tpu_torch.trainers.base_trainer import train_step
+    from ivlnce_tpu_torch.models.il_update import train_step
 
     class Collecting(Exception):
         pass

@@ -52,12 +52,12 @@ from ivlnce_tpu.parallel.train import sharded_train_step as jax_step
 from ivlnce_tpu.utils.registry import registry as jax_registry
 from ivlnce_tpu_torch import parallel
 from ivlnce_tpu_torch.config import get_config as torch_config
+from ivlnce_tpu_torch.models import il_update
 from ivlnce_tpu_torch.models.convert import params_from_jax
 from ivlnce_tpu_torch.models.rnn import bi_lstm_padded
 from ivlnce_tpu_torch.parallel import dryrun
 from ivlnce_tpu_torch.parallel import tensor as tp
 from ivlnce_tpu_torch.run import register_all
-from ivlnce_tpu_torch.trainers import base_trainer as tbt
 from ivlnce_tpu_torch.trainers import tour_dataset as ttd
 from ivlnce_tpu_torch.utils.registry import registry as torch_registry
 from tests.test_torch_parallel import (
@@ -325,7 +325,7 @@ def _split_run(tpol, tcfg, batch, mesh):
     states and, under their one-device names, the gradients, the weights
     and buffers, and Adam's moments."""
     policy = parallel.shard_policy(tpol, mesh).double()
-    optimizer = tbt.make_optimizer(policy, tcfg)
+    optimizer = il_update.make_optimizer(policy, tcfg)
     map_params = list(policy.net.map_encoder.parameters())
     assert [len(g["params"]) for g in optimizer.param_groups] == [
         len(list(policy.parameters())) - len(map_params), len(map_params)]
@@ -440,7 +440,7 @@ def test_model_axis_step_matches_jaxs_mesh_step(jax_model_axis_step):
     obs, prev, masks, corrected, weights = batch
     t, n = corrected.shape
     mesh = _cpu_mesh(4, 2)
-    policy = tbt.train_mode(parallel.shard_policy(tpol, mesh))
+    policy = il_update.train_mode(parallel.shard_policy(tpol, mesh))
     optimizer = torch.optim.SGD(policy.parameters(), lr=SGD_LR)
     masks = masks.reshape(t, n).astype(np.float32)
     *terms, rnn = parallel.sharded_train_step(mesh)(

@@ -53,6 +53,7 @@ from ivlnce_tpu.config import get_config as jax_config
 from ivlnce_tpu.trainers.base_trainer import BaseVLNCETrainer as JaxTrainer
 from ivlnce_tpu_torch import parallel
 from ivlnce_tpu_torch.config import get_config as torch_config
+from ivlnce_tpu_torch.models import il_update
 from ivlnce_tpu_torch.models.convert import params_from_jax
 from ivlnce_tpu_torch.trainers import base_trainer as tbt
 from ivlnce_tpu_torch.utils.registry import registry as torch_registry
@@ -180,7 +181,7 @@ def _float64_run(tpol, tcfg, batch, shards):
     loss terms, the final RNN states, the gradients, the weights and
     buffers, and Adam's state."""
     policy = copy.deepcopy(tpol).double()
-    optimizer = tbt.make_optimizer(policy, tcfg)
+    optimizer = il_update.make_optimizer(policy, tcfg)
     obs, prev, masks, corrected, weights = batch
     t, n = corrected.shape
     obs = {k: v.astype(np.float64) if v.dtype.kind == "f" else v
@@ -188,7 +189,7 @@ def _float64_run(tpol, tcfg, batch, shards):
     masks = masks.reshape(t, n).astype(np.float64)
     args = [obs, prev, masks, masks, corrected, weights.astype(np.float64)]
     if shards == 1:
-        step = tbt.train_step
+        step = il_update.train_step
         args = [{k: torch.from_numpy(v) for k, v in obs.items()},
                 *map(torch.from_numpy, args[1:])]
     else:
@@ -372,7 +373,7 @@ def test_two_carried_tour_batches_two_way_equal_one_way(memory, tmp_path):
             out.append((terms, carry, grads))
         runs[shards] = (out, trainer.policy.state_dict(), trainer)
     assert isinstance(runs[2][2]._train_steps[2], parallel.ShardedTrainStep)
-    assert runs[1][2]._train_steps[1] is tbt.train_step
+    assert runs[1][2]._train_steps[1] is il_update.train_step
     assert batches[1][3].reshape(-1, LANES)[0].tolist() == [1, 1]
     for (terms, carry, grads), (wterms, wcarry, wgrads) in zip(
             runs[2][0], runs[1][0]):

@@ -31,6 +31,7 @@ from ivlnce_tpu.config import get_config as jax_config
 from ivlnce_tpu.utils.registry import registry as jax_registry
 from ivlnce_tpu_torch.config import get_config as torch_config
 from ivlnce_tpu_torch.models import checkpoint_io as tcio
+from ivlnce_tpu_torch.models import il_update
 from ivlnce_tpu_torch.models.convert import params_from_jax
 from ivlnce_tpu_torch.trainers import base_trainer as tbt
 from ivlnce_tpu_torch.utils.registry import registry as torch_registry
@@ -193,7 +194,7 @@ def test_a_pickle_that_does_not_fit_raises_naming_the_tensor(fault,
                     protocol=pickle.HIGHEST_PROTOCOL)
     inert = tcio.load_jax_pickle(path)["optim_state"]
     with pytest.raises(error, match=name.replace(".", r"\.")):
-        tcio.adam_state_from_optax(inert, tbt.make_optimizer(tpol, tcfg),
+        tcio.adam_state_from_optax(inert, il_update.make_optimizer(tpol, tcfg),
                                    tpol)
 
 

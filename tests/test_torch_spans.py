@@ -1,10 +1,11 @@
 """The port's spans at the host boundaries of a policy step and its
 instruction counters (``utils/profiling.py``,
-``trainers/base_trainer.py``): one ``_policy_step`` of a tiny MapCMA
-trainer under ``torch.profiler`` holds ``host_prepare``, ``wire_obs``,
-``upload``, ``instruction_cache`` and ``device_sync`` inside its one
-``policy_step`` range, and a scripted token sequence gives exact counts
-of the rows encoded and of the rows whose tokens changed."""
+``trainers/base_trainer.py``, ``models/instruction_encoder.py``): one
+``_policy_step`` of a tiny MapCMA trainer under ``torch.profiler`` holds
+``host_prepare``, ``wire_obs``, ``upload``, ``instruction_cache`` and
+``device_sync`` inside its one ``policy_step`` range, and a scripted
+token sequence through the trainer's ``InstructionCache`` gives exact
+counts of the rows encoded, which are the rows whose tokens changed."""
 
 import numpy as np
 import pytest
@@ -74,7 +75,8 @@ def _ranges(prof, name):
 
 def test_policy_step_spans_inside_one_policy_step(trainer):
     rng = np.random.default_rng(0)
-    trainer._txt_cache_tokens = None
+    trainer.instruction_cache.clear()
+    start = (trainer.instruction_encodes, trainer.instruction_rows_encoded)
     rnn = trainer.policy.initial_rnn_states(LANES, "cpu")
     prev = np.zeros((LANES, 1), np.int64)
     ones = np.ones((LANES, 1), np.uint8)
@@ -84,6 +86,9 @@ def test_policy_step_spans_inside_one_policy_step(trainer):
         actions, _ = trainer._policy_step(
             _batch(rng), ones * 0, rnn, prev, (ones, ones, ones * 0, ones))
     assert actions.shape == (LANES, 1)
+    # the trainer's own counts: one encode of every lane
+    assert (trainer.instruction_encodes - start[0],
+            trainer.instruction_rows_encoded - start[1]) == (1, LANES)
     (step,) = _ranges(prof, "policy_step")
     for name in INPUT_SPANS + ("instruction_encoder", "mapper"):
         found = _ranges(prof, name)
@@ -116,9 +121,8 @@ def test_instruction_row_counts_on_scripted_tokens(trainer):
     differ from the cached tokens (all of them with no cache, or when the
     lane count changes), are the rows encoded."""
     rng = np.random.default_rng(1)
-    trainer._txt_cache_tokens = None
-    start = (trainer.instruction_encodes, trainer.instruction_rows_encoded,
-             trainer.instruction_rows_changed)
+    cache = trainer.instruction_cache
+    cache.clear()
     a = _tokens(rng)
     b = a.copy()
     b[1, 3] = b[1, 3] % 29 + 1  # one lane's new episode
@@ -126,27 +130,21 @@ def test_instruction_row_counts_on_scripted_tokens(trainer):
     c[0, 0] = c[0, 0] % 29 + 1
     c[2, 11] = c[2, 11] % 29 + 1  # two lanes' new episodes
     d = np.concatenate([c, c[:1]])  # a fourth lane
-    # (tokens, rows encoded, rows changed) per step
-    script = [(a, 3, 3), (a.copy(), 0, 0), (b, 1, 1), (b, 0, 0),
-              (c, 2, 2), (d, 4, 4), (d, 0, 0)]
+    # (tokens, rows encoded) per step
+    script = [(a, 3), (a.copy(), 0), (b, 1), (b, 0), (c, 2), (d, 4), (d, 0)]
     acts = [torch.profiler.ProfilerActivity.CPU]
+    encodes = rows = 0
     with torch.inference_mode():
-        for i, (tokens, encoded, changed) in enumerate(script):
-            before = (trainer.instruction_rows_encoded,
-                      trainer.instruction_rows_changed)
+        for i, (tokens, encoded) in enumerate(script):
             if i == 2:
                 prof = torch.profiler.profile(activities=acts)
                 prof.start()
-            out = trainer._cache_instruction_features(
-                {"instruction": tokens})
-            assert "instruction_features" in out
-            assert (trainer.instruction_rows_encoded - before[0],
-                    trainer.instruction_rows_changed - before[1]) == (
-                encoded, changed), i
+            features, got = cache(tokens, trainer._upload)
+            assert features.shape[::2] == (len(tokens), 12), i
+            assert got == encoded, i
+            encodes, rows = encodes + (got > 0), rows + got
         prof.stop()
-    assert (trainer.instruction_encodes - start[0],
-            trainer.instruction_rows_encoded - start[1],
-            trainer.instruction_rows_changed - start[2]) == (4, 10, 10)
+    assert (encodes, rows) == (4, 10)
     # under the capture (steps 2 to 6): 1 + 2 + 4 rows changed and encoded,
     # each encode staging its rows' 12 tokens, rows and lengths as int64
     assert profiling.traced()["counts"] == {
@@ -154,6 +152,5 @@ def test_instruction_row_counts_on_scripted_tokens(trainer):
         "upload_bytes_staged": 8 * ((12 + 2) * 1 + (12 + 2) * 2
                                     + (12 + 2) * 4)}
     # the weights changed (an IL update): the next step re-encodes all
-    trainer._txt_cache_tokens = None
-    trainer._cache_instruction_features({"instruction": d})
-    assert trainer.instruction_rows_changed - start[2] == 14
+    cache.clear()
+    assert cache(d, trainer._upload)[1] == 4

@@ -144,7 +144,7 @@ def _batches(kind: str, steps: int, lanes: int = LANES, seed: int = 0):
 
 def _fresh(trainer) -> None:
     """Forget every lane: no cached instruction, no map, no lane map."""
-    trainer._txt_cache_tokens = None
+    trainer.instruction_cache.clear()
     trainer._lane_rows = None
     for t in trainer.obs_transforms:
         t.reset()

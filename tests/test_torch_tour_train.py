@@ -41,6 +41,7 @@ from ivlnce_tpu.models import checkpoint_io as jcio
 from ivlnce_tpu.trainers import tour_dataset as jtd
 from ivlnce_tpu.trainers import trajectory_store as jts
 from ivlnce_tpu.utils.registry import registry as jax_registry
+from ivlnce_tpu_torch.models import il_update
 from ivlnce_tpu_torch.models.convert import params_from_jax
 from ivlnce_tpu_torch.run import run_exp
 from ivlnce_tpu_torch.trainers import base_trainer as tbt
@@ -214,7 +215,7 @@ def test_carry_over_three_batches_matches_jax(memory, tmp_path):
         if isinstance(module, torch.nn.RNNBase):
             module.train()
     ttrainer.policy = tpol
-    ttrainer.optimizer = tbt.make_optimizer(tpol, tcfg)
+    ttrainer.optimizer = il_update.make_optimizer(tpol, tcfg)
     carried_in = []
     update = ttrainer._update_agent
 

@@ -48,6 +48,7 @@ from ivlnce_tpu.trainers.base_trainer import make_train_step
 from ivlnce_tpu.utils.registry import registry as jax_registry
 from ivlnce_tpu_torch.config import get_config as torch_config
 from ivlnce_tpu_torch.models import checkpoint_io as tcio
+from ivlnce_tpu_torch.models import il_update
 from ivlnce_tpu_torch.models.convert import params_from_jax
 from ivlnce_tpu_torch.run import register_all
 from ivlnce_tpu_torch.trainers import base_trainer as tbt
@@ -294,7 +295,7 @@ def _torch_loss(tpol, batch, tour):
     t, n = corrected.shape
     tobs = {k: torch.from_numpy(v) for k, v in obs.items()}
     tpol.zero_grad(set_to_none=True)
-    return tbt.train_loss(
+    return il_update.train_loss(
         tpol, tobs, torch.from_numpy(prev),
         torch.from_numpy(masks.reshape(t, n).astype(np.float32)),
         torch.from_numpy(tour), torch.from_numpy(corrected),
@@ -470,7 +471,7 @@ def test_adam_matches_optax_on_shared_gradients(custom_lr):
     to 0.00099998713), which torch computes in Python floats."""
     tcfg, jpol, params, tpol = _pair(MAP_CONFIG, _opts(custom_lr=custom_lr))
     tpol.double()
-    topt = tbt.make_optimizer(tpol, tcfg)
+    topt = il_update.make_optimizer(tpol, tcfg)
     assert len(topt.param_groups) == (2 if custom_lr else 1)
     rng = np.random.default_rng(9)
     with jax.enable_x64(True):
@@ -529,12 +530,12 @@ def test_map_bn_statistics_follow_the_updated_weights(lengths):
     tcfg, jpol, params, tpol = _pair(MAP_CONFIG, _opts())
     obs, prev, masks, corrected, weights = _train_batch(tpol, lengths)
     t, n = corrected.shape
-    optimizer = tbt.make_optimizer(tpol, tcfg)
+    optimizer = il_update.make_optimizer(tpol, tcfg)
     # a large step, so the statistics of the two weights are far apart
     for group in optimizer.param_groups:
         group["lr"] = 0.05
     tmasks = torch.from_numpy(masks.reshape(t, n).astype(np.float32))
-    tbt.train_step(
+    il_update.train_step(
         tpol, optimizer, {k: torch.from_numpy(v) for k, v in obs.items()},
         torch.from_numpy(prev), tmasks, tmasks, torch.from_numpy(corrected),
         torch.from_numpy(weights.astype(np.float32)),
